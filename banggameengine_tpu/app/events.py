@@ -1,7 +1,7 @@
 """Synchronous type-indexed event bus + trigger event types.
 
 Host-side equivalent of ``src/core/EventBus.h`` (Subscribe/Publish/Clear over
-``type_index -> handler list``).  On the TPU side events are dense arrays
+``type_index -> handler list``).  On the device side events are dense arrays
 returned by the step (:class:`banggameengine_tpu.state.StepEvents`);
 :func:`dispatch_step_events` converts them into bus publishes, restoring the
 reference's callback surface (``PhysicsSystem.cpp:1017-1074`` publishes

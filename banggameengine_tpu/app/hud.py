@@ -26,7 +26,10 @@ def compose_hud(frame: np.ndarray, lines: list[tuple[int, str]]) -> np.ndarray:
 
     ``lines``: list of (bgfx color attribute, text).  Returns a new array.
     """
-    from PIL import Image, ImageDraw
+    try:
+        from PIL import Image, ImageDraw
+    except ImportError as e:
+        raise ImportError("the HUD text overlay needs Pillow") from e
 
     img = Image.fromarray(frame)
     draw = ImageDraw.Draw(img)
@@ -50,9 +53,11 @@ def standard_hud_lines(app) -> list[tuple[int, str]]:
         e = int(app.last_ray_hit.entity)
         if e != rc.NO_HIT:
             ray = f"{app.entity_label(e)} d={float(app.last_ray_hit.distance):.2f}"
+    import jax
+
     return [
-        (0x0F, "BangGameEngine-TPU"),
-        (0x0A, "Renderer: jax-tpu-raster"),
+        (0x0F, "BangGameEngine-JAX"),
+        (0x0A, f"Renderer: jax-{jax.default_backend()}-raster"),
         (0x0B, f"FPS: {app.time.fps:.1f}"),
         (0x0E, f"Camera: ({cam[0]:.1f}, {cam[1]:.1f}, {cam[2]:.1f})"),
         (0x0C, f"Controls: WASD/Mouse, F1=Wireframe({'on' if app.wireframe else 'off'}), "

@@ -67,7 +67,10 @@ class HeadlessWindow(BaseWindow):
         if self._sink is not None:
             self._sink(frame)
         if self._record_dir is not None:
-            from PIL import Image
+            try:
+                from PIL import Image
+            except ImportError as e:
+                raise ImportError("recording PNG frames needs Pillow") from e
 
             path = os.path.join(self._record_dir, f"frame_{self._frame_no:05d}.png")
             Image.fromarray(frame).save(path)
@@ -91,7 +94,7 @@ class XcbWindow(BaseWindow):
     """
 
     def __init__(self, width: int = 1280, height: int = 720,
-                 title: str = "BangGameEngine-TPU"):
+                 title: str = "BangGameEngine-JAX"):
         from banggameengine_tpu.native.xcbwindow_binding import (
             EV_BTN_DOWN, EV_BTN_UP, EV_KEY_DOWN, EV_KEY_UP, EV_MOTION,
             EV_RESIZE, NativeXcbWindow, _SCROLL_DOWN, _SCROLL_UP,
@@ -199,7 +202,7 @@ class GlfwWindow(BaseWindow):
     """
 
     def __init__(self, width: int = 1280, height: int = 720,
-                 title: str = "BangGameEngine-TPU"):
+                 title: str = "BangGameEngine-JAX"):
         import glfw  # noqa: F401 (raises ImportError when unavailable)
         import OpenGL.GL as gl  # noqa: F401 (presentation requires GL)
 

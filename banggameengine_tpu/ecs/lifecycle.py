@@ -3,7 +3,7 @@
 The reference Scene supports runtime CRUD — ``CreateEntity/DestroyEntity``
 with id recycling (``Scene.cpp:21-83``), ``SetParent`` + hierarchy dirtying
 (``Scene.cpp:354-393``), destroy detaching children into roots
-(``Scene.cpp:67-76``).  The TPU build anticipated this with fixed-capacity
+(``Scene.cpp:67-76``).  The array build anticipated this with fixed-capacity
 padded SoA arrays and an alive mask; this module is the host API over them.
 
 Shape discipline: every mutation preserves array shapes — the alive mask and

@@ -3,13 +3,13 @@
 Replaces the reference's recursive dirty-flag walk
 (``src/ecs/TransformSystem.cpp:10-46``: depth-first from roots, recompute
 local iff dirty, world = parentWorld @ local) with a **level-ordered batched**
-scheme that is TPU/XLA-friendly:
+scheme that suits XLA:
 
 - the host precomputes, at scene-build time, the entities grouped by depth
   (:func:`compute_levels`), padded to a rectangular ``int32[L, M]`` table;
 - the device recomputes **all** local matrices in one batched SRT compose
-  (no dirty flags — recompute-all is cheaper than divergent control flow on
-  TPU, SURVEY.md §7), then runs a short unrolled loop over depth levels,
+  (no dirty flags — recompute-all avoids divergent control flow,
+  SURVEY.md §7), then runs a short unrolled loop over depth levels,
   each level a gather + batched 4x4 matmul ``world[c] = world[parent[c]] @
   local[c]``.
 

@@ -1,6 +1,6 @@
 """3D math library: quaternions, 4x4 transforms, camera matrices.
 
-TPU-native replacement for the bx math routines the reference leans on
+Array-native replacement for the bx math routines the reference leans on
 (``bx::mtxSRT`` at ``src/ecs/Transform.cpp:20``, ``bx::mtxLookAt`` /
 ``bx::mtxProj`` at ``src/camera/Camera.cpp:63-72`` and
 ``src/render/Renderer.cpp:740-744``, ``bx::mtxInverse``/``mtxTranspose`` for the
@@ -212,7 +212,7 @@ def mat_identity(shape=()) -> Array:
 def mat_from_srt(scale: Array, quat: Array, pos: Array) -> Array:
     """Compose local = T @ R @ S from scale[...,3], quat[...,4], pos[...,3].
 
-    TPU-native equivalent of ``bx::mtxSRT`` (``src/ecs/Transform.cpp:20``).
+    Batched equivalent of ``bx::mtxSRT`` (``src/ecs/Transform.cpp:20``).
     """
     r = quat_to_mat3(quat)
     rs = r * scale[..., None, :]  # R @ diag(s): scale columns

@@ -1,6 +1,6 @@
 // Native presentation window over libxcb, loaded at runtime with dlopen.
 //
-// The TPU engine renders into a device framebuffer that the host fetches as
+// The engine renders into a device framebuffer that the host fetches as
 // an RGBA numpy array; this file is the "actually display it" path the
 // reference gets from GLFW + bgfx's swap chain (Window.cpp:6-28,
 // Renderer.cpp:733-736 bgfx::frame()).  Python binds via ctypes

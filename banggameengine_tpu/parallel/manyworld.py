@@ -1,16 +1,15 @@
 """Many-world data parallelism: vmap over worlds, shard over the device mesh.
 
 The reference is a single-threaded single-world loop
-(``Application.cpp:78-148``); the TPU build's scaling axis is **worlds**
+(``Application.cpp:78-148``); this engine's scaling axis is **worlds**
 (SURVEY.md §2 "Parallelism & distributed communication"): ``jax.vmap`` turns
 the engine step into a lockstep many-world simulator, and a 1-D
-``jax.sharding.Mesh`` over the world axis distributes it across a v5e-8
-slice.  Worlds are embarrassingly parallel — the compiled step contains **no
-cross-chip collectives**; XLA only inserts them for the optional metric
-reductions (``psum``-style means over the world axis), which ride the ICI.
+``jax.sharding.Mesh`` over the world axis distributes it across the
+devices.  Worlds are embarrassingly parallel — the compiled step contains
+**no cross-device collectives**; XLA only inserts them for the optional
+metric reductions (``psum``-style means over the world axis).
 
-This file is the framework's entire distributed-communication story — the
-idiomatic TPU replacement for the NCCL/MPI layer a GPU engine would carry.
+This file is the framework's entire distributed-communication story.
 """
 
 from __future__ import annotations
@@ -84,11 +83,11 @@ def make_sharded_many_world_step(
     folds a ``lax.scan`` inside the single dispatch (driver config #5:
     1k worlds stepped in lockstep).
 
-    ``world_minor=True`` vmaps over the LAST axis instead of the first.
-    Measured NEUTRAL on-chip (20.3k either way): JAX's batching rules
-    canonicalize the batch dim back to axis 0 inside most primitives, so
-    in_axes only moves the boundary transposes.  Kept for experiments;
-    the real lane-density fix is :func:`make_flat_many_world_step`.
+    ``world_minor=True`` vmaps over the LAST axis instead of the first
+    (JAX's batching rules canonicalize the batch dim back to axis 0 inside
+    most primitives, so in_axes only moves the boundary transposes).  Kept
+    for experiments; the dense-layout alternative is
+    :func:`make_flat_many_world_step`.
     """
     mesh = mesh or make_world_mesh()
 
@@ -118,18 +117,17 @@ def make_sharded_many_world_step(
             out = jax.tree.map(lambda a: jnp.moveaxis(a, -1, 0), out)
         if with_metrics:
             m = world_metrics(out)
-            metrics = {k: jnp.mean(v) for k, v in m.items()}  # ICI reduce
+            metrics = {k: jnp.mean(v) for k, v in m.items()}
             return out, metrics
         return out
 
     # jit infers output shardings from the (already device_put) inputs;
     # donation keeps stepping in-place per shard.  The static scene is a
-    # traced argument (replicated): captured constants cost a flat host
-    # round-trip per dispatch on tunneled runtimes.
+    # traced argument (replicated), not an embedded constant.
     jfn = jax.jit(run, donate_argnums=(0,))
     static = jax.device_put(static)
     step = lambda bstate, binp: jfn(bstate, binp, static)
-    step.jitted, step.bound_static = jfn, static   # for roofline/AOT tools
+    step.jitted, step.bound_static = jfn, static   # for AOT/trace tools
     return step
 
 
@@ -144,11 +142,10 @@ def _flat_static(static: StaticScene, num_worlds: int,
     group ids.  Host-side (numpy): runs once per factory call.
 
     The per-world batched path (vmap over a leading world axis) leaves
-    every contact tensor [W,B,C,3]-minor — ~40x lane padding on the
-    (8,128) tile.  Flattened, the whole contact phase runs through the
-    transposed component-form pipeline (:mod:`physics.contact_t`) with the
-    W*B body axis on the lanes.  Neighbors never cross world blocks, so
-    no broadphase runs at all.
+    every contact tensor [W,B,C,3]-minor.  Flattened, the whole contact
+    phase runs through the transposed component-form pipeline
+    (:mod:`physics.contact_t`) with the W*B body axis minor.  Neighbors
+    never cross world blocks, so no broadphase runs at all.
     """
     import dataclasses
 
@@ -242,7 +239,7 @@ def _flat_static(static: StaticScene, num_worlds: int,
     char_cand = (offs[:, None] + np.arange(b, dtype=np.int32)[None, :])
     # the static set of partner offsets (partner_id - row_id) the block
     # topology can produce: every partner read in the solver and the
-    # neighbor-validity masks become lane rolls over exactly this set
+    # neighbor-validity masks become rolls over exactly this set
     # (solve_contacts_t block_shifts)
     rows = np.arange(b, dtype=np.int64)[:, None]
     shifts = tuple(sorted({int(d) for d in
@@ -425,18 +422,15 @@ def make_many_world_step(
 ):
     """Auto-routing many-world factory: ``(step, layout)``.
 
-    Picks the flat block-diagonal layout (the W*B body axis on the 128
-    lanes — measured 227k vs 18.5k world-steps/s/chip for the vmapped
-    [W, B, ...] layout, whose per-world rows waste ~40x of every (8,128)
-    tile) on BOTH single- and multi-device meshes: on a slice, each
-    device runs its own W/D-world flat block under ``shard_map`` (round
-    5; no collectives, per-chip throughput = single-chip flat at W/D).
-    Falls back to the vmapped layout LOUDLY and ONLY on the host-side
-    build rejections the flat builder actually raises (``ValueError``:
-    world count not divisible by the mesh, dynamic-topology scenes) —
-    chip-side compile failures of the default layout PROPAGATE so a
-    regression can never silently ship the 30x-slower path (round-4
-    verdict #6).
+    Picks the flat block-diagonal layout (the W*B body axis minor, instead
+    of the vmapped [W, B, ...] layout's per-world rows) on BOTH single- and
+    multi-device meshes: on several devices, each runs its own W/D-world
+    flat block under ``shard_map`` (no collectives).  Falls back to the
+    vmapped layout LOUDLY and ONLY on the host-side build rejections the
+    flat builder actually raises (``ValueError``: world count not divisible
+    by the mesh, dynamic-topology scenes) — device-side compile failures of
+    the default layout PROPAGATE so a regression never silently ships the
+    slower path.
     """
     try:
         step = make_flat_many_world_step(

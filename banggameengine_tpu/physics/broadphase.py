@@ -1,13 +1,18 @@
 """Broadphase collision pruning.
 
 Replaces Bullet's DBVT broadphase (``btDbvtBroadphase`` at
-``PhysicsSystem.cpp:124``) with two TPU-shaped strategies:
+``PhysicsSystem.cpp:124``) with three array-shaped strategies:
 
-- **dense all-pairs** (implicit in :func:`narrowphase.pair_contacts_dense`)
-  for small worlds (N <= a few hundred) — O(N^2) but pure VPU work with
-  reduction-only accumulation, the right trade at demo scale;
-- **uniform spatial hash grid + fixed-capacity neighbor lists** (this
-  module) for large worlds (10k-body stress, driver config #2): bodies are
+- **dense all-pairs** (:func:`build_neighbor_lists_dense`) for small worlds
+  (N <= a few hundred) — O(N^2) but pure vector work with reduction-only
+  accumulation, the right trade at demo scale;
+- **blocked all-pairs over AABBs** (:func:`neighbor_lists_aabb`) for the
+  10k-body stress world: rows are processed in fixed-size blocks, each
+  block tests every column and keeps its first ``k`` partners; callers
+  Morton-sort the bodies first (:func:`morton_key_xz`) so that the contact
+  phase downstream reads neighbours close in memory;
+- **uniform spatial hash grid + fixed-capacity neighbor lists** for large
+  worlds: bodies are
   hashed by cell, a ``[table, cell_capacity]`` cell list is built with one
   sort + one scatter, and each body gathers candidates from its 27-cell
   neighborhood, AABB-filtered and compacted to a ``[N, max_neighbors]``
@@ -33,6 +38,11 @@ Array = jax.Array
 
 # large primes for 3D spatial hashing
 _P1, _P2, _P3 = 73856093, 19349663, 83492791
+
+# rows per block of :func:`neighbor_lists_aabb`: at 10,000 bodies on an
+# H100 one block was fastest (PERF.md, PR 1); larger worlds split into
+# blocks so the [block, N] intermediates stay bounded
+BLOCK_ROWS = 16384
 
 
 class NeighborLists(NamedTuple):
@@ -71,10 +81,6 @@ def build_neighbor_lists_dense(
     ov = sh.aabb_overlap(mn[:, None], mx[:, None], mn[None, :], mx[None, :],
                          margin=aabb_margin)
     ov &= pair_mask
-    # XLA folds ~eye into a pred[N,N] literal baked in the executable;
-    # small baked literals are fine — unlike CAPTURED device arrays, they
-    # are not re-fetched from the host per dispatch (the step runs at
-    # 3.2 ms/dispatch with one embedded; see scripts/find_constants.py)
     ov &= ~jnp.eye(n, dtype=bool)
 
     # sort-free stable compaction (cumsum destinations + one-hot matmul)
@@ -176,3 +182,81 @@ def build_neighbor_lists(
     return NeighborLists(idx=idx, valid=valid,
                          cell_overflow=cell_overflow,
                          nbr_overflow=nbr_overflow)
+
+
+def morton_key_xz(pos: Array, cell: float = 0.25) -> Array:
+    """Morton (z-order) key over the horizontal plane: interleaved quantized
+    x/z.  Sorting bodies by this key puts spatial neighbours close together
+    in memory (ground-plane worlds spread in x/z; y adds little).
+
+    Axes clamp to 15 bits (~8 km at the default cell) so the interleaved
+    key never reaches the int32 sign bit — ``spread(zi) << 1`` with a
+    16-bit zi would flip the key negative and break the argsort's spatial
+    ordering (perf-only: the result stays a valid permutation)."""
+    mn = jnp.min(pos, axis=0)
+    xi = jnp.clip(((pos[:, 0] - mn[0]) / cell).astype(jnp.int32), 0, 0x7FFF)
+    zi = jnp.clip(((pos[:, 2] - mn[2]) / cell).astype(jnp.int32), 0, 0x7FFF)
+
+    def spread(v):
+        v = (v | (v << 8)) & 0x00FF00FF
+        v = (v | (v << 4)) & 0x0F0F0F0F
+        v = (v | (v << 2)) & 0x33333333
+        v = (v | (v << 1)) & 0x55555555
+        return v
+
+    return spread(xi) | (spread(zi) << 1)
+
+
+def neighbor_lists_aabb(
+    mn: Array,             # f32[N,3] AABB min (no margin applied yet)
+    mx: Array,             # f32[N,3] AABB max
+    dyn: Array,            # i32[N]: -1 not solid, 0 solid static, 1 dynamic
+    layer_i: Array,        # i32[N]
+    mask_i: Array,         # i32[N]
+    max_neighbors: int = 8,
+    aabb_margin: float = 0.04,
+    block_rows: int = BLOCK_ROWS,
+) -> NeighborLists:
+    """All-pairs AABB broadphase over fixed-size row blocks.
+
+    Pair filter: AABB overlap (+margin, inclusive) & both solid & layer/mask
+    both ways & at least one dynamic & not self.  Each row keeps its first
+    ``max_neighbors`` partners in ascending column order (-1 padded);
+    ``nbr_overflow`` counts the partners dropped beyond that budget.
+    Indices refer to the order of the inputs."""
+    n = mn.shape[0]
+    k = max_neighbors
+    lo = mn - 0.5 * aabb_margin
+    hi = mx + 0.5 * aabb_margin
+    cols = jnp.arange(n, dtype=jnp.int32)
+
+    def block(rows):
+        r = jnp.minimum(rows, n - 1)
+        ov = (rows < n)[:, None] & (rows[:, None] != cols[None, :])
+        for a in range(3):
+            ov &= (lo[r, a][:, None] <= hi[None, :, a])
+            ov &= (lo[None, :, a] <= hi[r, a][:, None])
+        dr = dyn[r][:, None]
+        dc = dyn[None, :]
+        ov &= (dr >= 0) & (dc >= 0) & ((dr > 0) | (dc > 0))
+        ov &= ((layer_i[r][:, None] & mask_i[None, :]) != 0)
+        ov &= ((layer_i[None, :] & mask_i[r][:, None]) != 0)
+        # first k partners, smallest column first: k row-min passes
+        found, prev = [], jnp.full((rows.shape[0], 1), -1, jnp.int32)
+        for _ in range(k):
+            prev = jnp.min(jnp.where(ov & (cols[None, :] > prev), cols, n),
+                           axis=1, keepdims=True)
+            found.append(prev)
+        idx = jnp.concatenate(found, axis=1)
+        return (jnp.where(idx < n, idx, -1),
+                jnp.sum(ov, axis=1, dtype=jnp.int32))
+
+    b = max(1, min(block_rows, n))
+    n_blocks = -(-n // b)
+    rows = jnp.arange(n_blocks * b, dtype=jnp.int32).reshape(n_blocks, b)
+    idx, counts = jax.lax.map(block, rows)
+    idx = idx.reshape(n_blocks * b, k)[:n]
+    counts = counts.reshape(n_blocks * b)[:n]
+    overflow = jnp.sum(jnp.maximum(counts - k, 0)).astype(jnp.int32)
+    return NeighborLists(idx=idx, valid=idx >= 0,
+                         cell_overflow=jnp.int32(0), nbr_overflow=overflow)

@@ -172,14 +172,11 @@ def step_characters_t(
     gravity, dt, step_height, max_slope_cos,
 ):
     """Planar (component-form) image of :func:`step_character` for C
-    characters at once, characters on the 128-lane axis.
+    characters at once, characters on the minor axis.
 
     The vmapped per-character form builds ``[C,3,K,3]``-minor
-    intermediates whose tiny trailing dims pad 32-42x on the (8,128) tile
-    and whose depenetration while-loop traced at ~5.3 ms/step in the flat
-    many-world (MORE than the 10-iteration contact solver); this planar
-    form works on ``[K,C]``/[C] planes like the transposed contact
-    pipeline (contact_t.py).  Same formulas, same argmin/argmax
+    intermediates; this planar form works on ``[K,C]``/[C] planes like
+    the transposed contact pipeline (contact_t.py).  Same formulas, same argmin/argmax
     tie-breaks; returns (cx, cy, cz, vel_y, grounded).
     """
     # -- walk velocity (walk_velocity in comps; pitch=0 so |fwd|=1) --

@@ -1,15 +1,11 @@
 """Transposed (component-form) contact pipeline for large worlds.
 
 The general pipeline (:mod:`narrowphase` + :mod:`solver`) carries vectors as
-``[..., 3]``-minor arrays; at N=10k those tile terribly on TPU (a [N,K,3]
-f32 maps its last dims onto the (8,128) tile, wasting ~40x of every tile).
-This module is the same math written **component-form with the body axis
-last** — every intermediate is ``[slots, N]`` with N on the 128-lane axis,
-so the VPU runs at full occupancy.  Profiled at N=10k on v5e: narrowphase +
-solve drops from ~70 ms to a few ms.
+``[..., 3]``-minor arrays.  This module is the same math written
+**component-form with the body axis last** — every intermediate is
+``[slots, N]`` with N the dense minor axis.
 
-Scope: box-box + implicit ground plane (the 10k-body stress config, driver
-config #2), plus — when ``shape_type`` is passed — solid CAPSULES in the
+Scope: box-box + implicit ground plane (the 10k-body stress config), plus — when ``shape_type`` is passed — solid CAPSULES in the
 same component form (capsule-box via 3 sampled spheres, capsule-capsule via
 segment closest points, capsule-ground via the two end spheres), so the
 flat many-world path no longer excludes capsule rigid bodies (round-4
@@ -112,10 +108,9 @@ def box_contacts_t(
 
     # partner components in ONE channel-major gather: take(..., axis=1) of
     # the [15, N] table with [K, N] indices lands [15, K, N] with every
-    # attribute a contiguous [K, N] plane.  (A row-major [K, N, 16] gather
-    # pads its minor dim to the 128-lane tile and re-reads 8x per column
-    # slice; separate per-array gathers lower to ~0.8 ms scalar gathers
-    # each at N=10k.)  The barrier pins the gather to run once.
+    # attribute a contiguous [K, N] plane, instead of strided columns of a
+    # row-major [K, N, 16] gather or one gather per array.  The barrier
+    # pins the gather to run once.
     rows = [px, py, pz, hx, hy, hz] + list(a)
     if want_feat:
         rows.append(orig_id.astype(jnp.float32))
@@ -691,15 +686,12 @@ def solve_contacts_t(
 
     ``block_size=B`` declares the scene block-diagonal: every partner id
     lives in the caller's own B-entity block (flat many-worlds), so the
-    partner read is a LANE ROLL: partner = n + shift with |shift| < B.
-    The per-iteration read becomes a select-accumulate over the static
-    shift set (``block_shifts``, host-computed from the neighbor
-    topology; defaults to all nonzero |d| < B) of lane-rolled velocity
-    planes — exactly one shift mask is true per (slot, body), so it is
-    bit-identical to the gather.  This replaced the r4 [C, B, N] one-hot
-    + per-block broadcast contraction, whose minor-dim-B broadcast and
-    sublane-padded (B=16) middle axis the device trace priced at ~90%
-    of solver time (~140 us/iteration at N=16k vs ~15 for the rolls)."""
+    partner read is a ROLL: partner = n + shift with |shift| < B.  The
+    per-iteration read becomes a select-accumulate over the static shift
+    set (``block_shifts``, host-computed from the neighbor topology;
+    defaults to all nonzero |d| < B) of rolled velocity planes — exactly
+    one shift mask is true per (slot, body), so it is bit-identical to the
+    gather."""
     n = pos.shape[0]
     vx, vy, vz = vel[:, 0], vel[:, 1], vel[:, 2]
     wx, wy, wz = ang[:, 0], ang[:, 1], ang[:, 2]
@@ -724,15 +716,11 @@ def solve_contacts_t(
             tuple(shift == d for d in ds))                    # each [C, N]
 
         def partner_read(packed_t):
-            """[ch, N] -> [ch, C, N]: partner attributes as lane rolls +
-            a select chain over the static shift set.  Exactly one mask
-            is true per valid (slot, body) -> bit-identical to the
-            gather; rolled wrap-around rows are never selected (shifts
-            stay in-block).  All operands are [*, N]-lane-dense: no
-            sublane-padded B axis, no minor-dim broadcast (the r4
-            one-hot form's broadcast_in_dim was ~100k cycles/iteration
-            in the device trace; NOT an einsum either — XLA lowers the
-            'sbn,cbn->csn' contraction as a ~3x slower convolution)."""
+            """[ch, N] -> [ch, C, N]: partner attributes as rolls + a
+            select chain over the static shift set.  Exactly one mask is
+            true per valid (slot, body) -> bit-identical to the gather;
+            rolled wrap-around rows are never selected (shifts stay
+            in-block).  All operands are dense [*, N] planes."""
             acc = jnp.zeros(packed_t.shape[:1] + shift.shape,
                             packed_t.dtype)
             for d, m in zip(ds, masks):
@@ -742,11 +730,9 @@ def solve_contacts_t(
 
     # all iteration-invariant partner attributes in ONE channel-major
     # gather: take(..., axis=1) of a [12, N] table with [C, N] indices
-    # lands [12, C, N] with each feature a contiguous [C, N] plane —
-    # a row-major [C, N, 16] gather pads its minor dim to the 128-lane
-    # tile and re-reads 8x per column slice (scripts/profile_stress.py
-    # attributed ~5 ms/step of solver setup to exactly that).  The
-    # barrier pins the gather to run once instead of per consumer.
+    # lands [12, C, N] with each feature a contiguous [C, N] plane, not
+    # strided columns of a row-major [C, N, 16] gather.  The barrier pins
+    # the gather to run once instead of per consumer.
     ia = _inertia_world_comps(quat, inv_inertia_body)       # 6 x [N]
     setup_pack_t = jnp.stack(
         [px, py, pz, inv_m, friction, restitution, *ia])    # [12, N]

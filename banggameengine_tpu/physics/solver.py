@@ -2,7 +2,7 @@
 
 Replaces Bullet's sequential-impulse solver (``btSequentialImpulseConstraint
 Solver``, created at ``PhysicsSystem.cpp:124-128``) with a deterministic,
-order-independent scheme that maps to the TPU's dense vector units.
+order-independent scheme made of dense array operations.
 
 Design (after the round-1 perf pass):
 
@@ -65,7 +65,7 @@ def inv_inertia_world(quat: Array, inv_inertia_body: Array) -> Array:
 
 
 def compaction_matrix(valid: Array, budget: int) -> tuple[Array, Array, Array]:
-    """Stable compaction as a one-hot matrix (sort-free, MXU-friendly).
+    """Stable compaction as a one-hot matrix (sort-free, a matmul).
 
     valid bool[..., M] -> (sel f32[..., M, budget] with sel[m, c] = 1 iff
     valid slot m lands in output slot c, new_valid bool[..., budget],
@@ -96,18 +96,17 @@ def compact_contacts(
     """Compress candidate slots to ``[N, budget]`` per-body contact lists.
 
     Sort-free: destinations come from a running count (stable order) and the
-    move is a one-hot contraction on the MXU — cheaper on TPU than the
-    argsort-based compaction it replaces.  Overflow (more real contacts than
+    move is a one-hot contraction (a matmul) instead of an argsort-based
+    compaction.  Overflow (more real contacts than
     budget) is returned for diagnostics.  When ``feat`` is given (persistent
     contact-cache features), a compacted ``c_feat`` (-1 in empty slots) is
     appended to the return.
     """
     sel, new_valid, counts = compaction_matrix(valid, budget)
 
-    # per-operand precision: the 0/1 selection matrix is EXACT in bf16
-    # (DEFAULT, one MXU pass); the f32 payload stays HIGHEST (3-pass
-    # decomposition).  Bit-identical to (HIGHEST, HIGHEST) for selection
-    # contractions at half the MXU passes.
+    # per-operand precision: the 0/1 selection matrix is EXACT at DEFAULT
+    # precision; the f32 payload stays HIGHEST.  Bit-identical to
+    # (HIGHEST, HIGHEST) for selection contractions.
     _SEL_PREC = (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGHEST)
 
     def move(a):
@@ -172,12 +171,11 @@ def solve_contacts_unified(
     rb = c_point - pos[safe_b]
     t1, t2 = _orthonormal_tangents(c_normal)
 
-    # Partner-velocity reads happen EVERY solver iteration.  A dynamic
-    # gather runs scalar-bound on TPU (~10 ns/element through this
-    # runtime), so for small body counts we build a one-hot selection
-    # tensor ONCE and turn the per-iteration gather into an MXU
-    # contraction (exact: each row has at most a single 1; static/world
-    # slots are all-zero rows, replacing the where(is_static, 0, ...)).
+    # Partner-velocity reads happen EVERY solver iteration.  For small
+    # body counts we build a one-hot selection tensor ONCE and turn the
+    # per-iteration gather into a contraction (exact: each row has at most
+    # a single 1; static/world slots are all-zero rows, replacing the
+    # where(is_static, 0, ...)).
     use_onehot = n <= 128
     if use_onehot:
         sel_partner = jax.nn.one_hot(
@@ -208,9 +206,9 @@ def solve_contacts_unified(
     def rel_vel(v_, w_):
         va = v_[:, None] + jnp.cross(w_[:, None], ra)
         if use_onehot:
-            # 0/1 partner selector is bf16-exact: one MXU pass for it,
-            # 3-pass HIGHEST for the f32 velocity payload (bit-identical
-            # to the all-HIGHEST form at half the passes)
+            # 0/1 partner selector is exact at DEFAULT precision; HIGHEST
+            # for the f32 velocity payload (bit-identical to the
+            # all-HIGHEST form)
             prec = (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGHEST)
             vb_lin = jnp.einsum("ncm,mk->nck", sel_partner, v_,
                                 precision=prec)

@@ -1,6 +1,6 @@
 """Physics step orchestration: one fixed step of the whole pipeline.
 
-The TPU image of ``PhysicsSystem::Update`` (``PhysicsSystem.cpp:1208-1328``)
+The array image of ``PhysicsSystem::Update`` (``PhysicsSystem.cpp:1208-1328``)
 minus the Ensure/prune scans (topology is baked at scene build).  Order per
 step mirrors the reference:
 
@@ -56,8 +56,7 @@ def scene_census(static: StaticScene) -> dict:
     pipeline stages (character sweep, capsule narrowphase, trigger overlap).
     Step factories call this once and thread the result through
     ``physics_kwargs``, so the StaticScene itself can stay a *traced*
-    argument (embedded constants cost a flat host round-trip per dispatch
-    on tunneled runtimes — scripts/find_constants.py).
+    argument (a config hot reload then swaps it without recompiling).
     """
     import numpy as _np
 
@@ -103,7 +102,7 @@ def physics_step(
     alive = state.alive
     has_collider = (state.comp_mask & (COMP_COLLIDER | COMP_CHARACTER)) != 0
     is_dynamic = (static.body_type == BODY_DYNAMIC) & alive
-    # kinematic bodies move by host-set velocity (the TPU image of
+    # kinematic bodies move by host-set velocity (the array image of
     # SyncKinematicBodiesToPhysics, PhysicsSystem.cpp:952-989: the reference
     # pushes Transform changes into Bullet each tick and Bullet derives the
     # body's velocity; here the host sets the velocity directly — see
@@ -168,10 +167,8 @@ def physics_step(
             # static per-slot obstacle candidates (flat many-world: each
             # character only ever meets its own world's entities), run
             # through the PLANAR multi-character step: the vmapped
-            # per-char form builds [C, 3, K, 3]-minor intermediates that
-            # pad 32-42x on the (8,128) tile and traced at ~5.3 ms/step
-            # (more than the 10-iteration solver); the planar form keeps
-            # characters on the 128 lanes throughout
+            # per-char form builds [C, 3, K, 3]-minor intermediates, the
+            # planar form keeps every quantity a dense [K, C] plane
             cand = char_candidates                       # i32[C, K]
             ob_c = obstacle_base[cand] & (cand != safe_ce[:, None])
             if group is not None:
@@ -274,34 +271,31 @@ def physics_step(
     # (all paths prune pairs BEFORE the expensive manifold math; every
     # surviving pair appears mirrored in both bodies' rows for the
     # row-reduction solver)
-    if broadphase == "pallas":
-        # TPU-native stress path (driver config #2): Pallas blocked all-pairs
-        # AABB broadphase + transposed component-form narrowphase/solver
+    if broadphase == "sorted":
+        # 10k-body stress path: Morton-sorted blocked all-pairs AABB
+        # broadphase (a Pallas kernel on CUDA GPUs) + transposed
+        # component-form narrowphase/solver
         # (box-only: the scene census guarantees no solid capsules)
         if enable_capsule:
             raise ValueError(
-                "broadphase='pallas' is the box-only stress pipeline; this "
+                "broadphase='sorted' is the box-only stress pipeline; this "
                 "scene has solid capsules (or a traced StaticScene) — use "
                 "broadphase='grid' or 'dense'"
             )
         from banggameengine_tpu.physics import contact_t
         from banggameengine_tpu.physics import shapes as sh_mod
-        from banggameengine_tpu.physics.broadphase_pallas import (
-            morton_key_xz, neighbor_lists_pallas_aabb,
+        from banggameengine_tpu.physics.broadphase import morton_key_xz
+        from banggameengine_tpu.physics.broadphase_triton import (
+            neighbor_lists_sorted,
         )
 
-        # The whole contact phase runs in Morton-sorted space: the argsort
-        # is ~0.04 ms at N=10k while giving the broadphase kernel's
-        # block-AABB pruning near-perfect locality (most of the 128x128
-        # chunk scans are skipped).  One packed gather carries every
+        # The whole contact phase runs in Morton-sorted space, so partners
+        # sit close together in memory.  One packed gather carries every
         # per-body attribute into sorted order; only vel/ang come back
         # (pos/quat are read-only here).
         order = jnp.argsort(morton_key_xz(pos))
         # inverse permutation: every sorted->original move below is a
-        # GATHER x[inv_order] instead of zeros.at[order].set(x) — the
-        # device trace priced the three permutation scatters at
-        # ~2.1 ms/step at N=10k (scatter rows launch near-serially on
-        # TPU) vs ~9 us for this second bitonic argsort
+        # GATHER x[inv_order] instead of a permutation scatter
         inv_order = jnp.argsort(order)
         mn, mx = sh_mod.shape_aabb(
             pos, quat, static.shape_type, static.shape_size)
@@ -330,11 +324,11 @@ def physics_step(
         fric_s, rest_s = sf[:, 26], sf[:, 27]
         dyn_s = ints(sf[:, 28])
 
-        nl = neighbor_lists_pallas_aabb(
-            sf[:, 0:3], sf[:, 3:6], dyn_s, ints(sf[:, 29]), ints(sf[:, 30]),
-            max_neighbors=min(max_neighbors, 8),
-            interpret=(jax.default_backend() == "cpu"),
-        )
+        with jax.named_scope("broadphase"):
+            nl = neighbor_lists_sorted(
+                sf[:, 0:3], sf[:, 3:6], dyn_s, ints(sf[:, 29]),
+                ints(sf[:, 30]), max_neighbors=min(max_neighbors, 8),
+            )
         ground_ok_s = (dyn_s > 0) & jnp.asarray(static.ground_enabled)
         if warm_start:
             (c_prt, c_ptx, c_pty, c_ptz, c_nx, c_ny, c_nz, c_dep, c_valid,
@@ -398,11 +392,10 @@ def physics_step(
         # at all — the precomputed intra-world all-pairs lists feed the
         # transposed component-form contact pipeline directly, in original
         # id order (no Morton sort: world blocks are already contiguous).
-        # Every [slots, N] intermediate puts the flat body axis on the
-        # 128-lane dim, where the per-world dense path wastes ~40x of every
-        # tile on [W,B,C,3]-minor shapes.  Scenes with solid capsules pass
-        # shape_type through to the mixed-shape slots (round 4; the path
-        # was box-only before).
+        # Every [slots, N] intermediate keeps the flat body axis minor,
+        # where the per-world dense path builds [W,B,C,3]-minor shapes.
+        # Scenes with solid capsules pass shape_type through to the
+        # mixed-shape slots.
         if static_neighbors is None:
             raise ValueError(
                 "broadphase='static' requires static_neighbors=(idx, valid)")
@@ -412,10 +405,9 @@ def physics_step(
         both = solid & alive
         if solver_block_shifts:
             # block-diagonal topology: partner = row + shift, so the two
-            # [N, K] partner-validity gathers (the trace priced the flat
-            # scalar-gather lowering at ~0.9 ms/step at N=16k) become a
-            # select chain over lane-rolled [N] planes with the static
-            # shift set (see solve_contacts_t.partner_read)
+            # [N, K] partner-validity gathers become a select chain over
+            # rolled [N] planes with the static shift set (see
+            # solve_contacts_t.partner_read)
             shift_nb = nb_idx - jnp.arange(n, dtype=jnp.int32)[:, None]
             pb = jnp.zeros(nb_idx.shape, bool)
             for d in solver_block_shifts:
@@ -587,7 +579,7 @@ def physics_step(
     inv_i_w = sv.inv_inertia_world(quat, static.inv_inertia_body)
 
     if warm_start:
-        # feature-match against the previous step's cache (the TPU image of
+        # feature-match against the previous step's cache (the array image of
         # Bullet's persistent-manifold impulse cache): [C, C0] equality
         # one-hot contraction per body — tiny, dense, vmap-safe
         match = (

@@ -70,10 +70,8 @@ def trigger_aabb_overlaps(
     tmn, tmx = sh.shape_aabb(pos[safe_te], quat[safe_te],
                              trig_shape.astype(shape_type.dtype), trig_size)
     emn, emx = sh.shape_aabb(pos, quat, shape_type, size)
-    # axis-at-a-time compares: the broadcast [T,N,3] form puts 3 on the
-    # minor dim, which pads to 128 lanes — at T=1000/N=16k (flat
-    # many-world) that intermediate alone is 24 GB of padded HBM; three
-    # [T,N] compares are lane-dense
+    # axis-at-a-time compares: three dense [T,N] compares instead of a
+    # [T,N,3] intermediate with 3 on the minor dim
     overlap = jnp.ones((tmn.shape[0], n), bool)
     for j in range(3):
         overlap &= (tmn[:, j][:, None] <= emx[:, j][None, :]) \

@@ -1,8 +1,8 @@
-"""TPU tile rasterizer: vertex transform, binning, visibility buffer.
+"""Software tile rasterizer: vertex transform, binning, visibility buffer.
 
-Replaces the reference's bgfx GPU submission path (``Renderer.cpp:601-730``
-per-submesh draws into a D3D11 device) with a software raster pipeline shaped
-for the TPU's dense vector units (SURVEY.md §7 "Rasterization on TPU"):
+Replaces the reference's bgfx submission path (``Renderer.cpp:601-730``
+per-submesh draws into a D3D11 device) with a software raster pipeline made
+of dense array operations (SURVEY.md §7):
 
 1. **vertex transform** — one batched matmul over all scene vertices
    (world gathered per vertex from the entity table);
@@ -14,7 +14,7 @@ for the TPU's dense vector units (SURVEY.md §7 "Rasterization on TPU"):
    [tiles, tris] bbox-overlap mask with a stable argsort compaction — no
    scatter;
 4. **visibility pass** — per tile, a ``lax.scan`` over triangle chunks
-   evaluates edge functions over the whole pixel block at once (VPU-shaped
+   evaluates edge functions over the whole pixel block at once (dense
    [chunk, th, tw] ops), z-tests, and keeps the winning triangle id +
    barycentrics per pixel ("visibility buffer");
 5. shading happens once per pixel in :mod:`banggameengine_tpu.render.shading`
@@ -49,9 +49,8 @@ K_GLOBAL = 16
 class VisibilityBuffer(NamedTuple):
     """Planar (SoA) visibility buffer.
 
-    Framebuffer-size tensors stay [H,W] planes: a trailing minor dim of 2
-    would pad to the 128-lane tile (64x wasted HBM traffic on every
-    read/write)."""
+    Framebuffer-size tensors stay [H,W] planes rather than one array with a
+    trailing minor dim of 2."""
 
     depth: Array    # f32[H,W], 1.0 = far/background
     tri_id: Array   # i32[H,W], -1 = background
@@ -85,8 +84,7 @@ class TiledVisibility(NamedTuple):
     # heavy-pass bookkeeping: the tiles the heavy re-raster MAY have
     # overwritten, and which of them it actually did.  The deferred shade
     # uses these for a second, wider one-hot resolve over just those
-    # tiles instead of a per-pixel row-gather fallback (the multi-dim
-    # take measured ~27 ms/frame on chip).
+    # tiles instead of a per-pixel row-gather fallback.
     heavy: Array | None = None        # i32[heavy_tiles] tile indices
     heavy_needs: Array | None = None  # bool[heavy_tiles]
 
@@ -94,7 +92,7 @@ class TiledVisibility(NamedTuple):
 def transform_vertices(v_pos, v_entity, world_mats, view, proj):
     """Object-space vertices -> (world_pos [V,3], clip [V,4]).
 
-    One gather + one fused matmul chain; the MXU sees [V,4]x[4,4].
+    One gather + one fused matmul chain ([V,4]x[4,4]).
     """
     w = world_mats[v_entity]                          # [V,4,4]
     wp = jnp.einsum("vij,vj->vi", w[:, :3, :3], v_pos) + w[:, :3, 3]
@@ -122,12 +120,10 @@ def clip_near_plane(clip_tri: Array, tri_valid: Array):
     sub_bary f32[T,2,3,3] rows = original-space barycentrics of each corner,
     sub_valid bool[T,2]).
     """
-    # COMPONENT FORM internally: the [T,3,4]-minor tensor algebra this
-    # function used to run pads its 3/4-sized minor dims onto the 128-lane
-    # tile (~2.8 ms/frame of pure layout waste in the HLO trace); every
-    # intermediate below is a dense [T] plane, and the padded [T,2,3,4]
-    # outputs are assembled exactly once at the end.  Values are
-    # bit-identical to the tensor form (same selects, same lerp order).
+    # COMPONENT FORM internally: every intermediate below is a dense [T]
+    # plane, and the [T,2,3,4] outputs are assembled exactly once at the
+    # end.  Values are bit-identical to the [T,3,4] tensor form (same
+    # selects, same lerp order).
     d_c = [clip_tri[:, i, 2] for i in range(3)]          # z_clip per corner
     inside = [dc >= 0.0 for dc in d_c]
     k = (inside[0].astype(jnp.int32) + inside[1].astype(jnp.int32)
@@ -214,13 +210,13 @@ def setup_triangles(sub_clip, sub_valid, width: int, height: int):
     sub_clip: f32[S, 3, 4] (S = 2T flattened sub-triangles, all z >= 0 by
     construction); returns dict of per-sub-tri arrays.
     """
-    # component form on dense [S] planes (the [S,3]-minor algebra pads
-    # 3 -> 128 lanes); the [S,3] outputs are assembled once at the end
+    # component form on dense [S] planes; the [S,3] outputs are
+    # assembled once at the end
     ws = [sub_clip[:, i, 3] for i in range(3)]
     safe_w = [jnp.where(jnp.abs(w) > 1e-9, w, 1e-9) for w in ws]
     iw = [1.0 / sw for sw in safe_w]
     # true divisions (not mul-by-reciprocal): bit parity with the tensor
-    # form this replaced, which the golden-image and pallas tests assert
+    # form this replaced, which the golden-image tests assert
     sx = [(sub_clip[:, i, 0] / safe_w[i] * 0.5 + 0.5) * width
           for i in range(3)]
     sy = [(1.0 - (sub_clip[:, i, 1] / safe_w[i] * 0.5 + 0.5)) * height
@@ -242,8 +238,8 @@ def setup_triangles(sub_clip, sub_valid, width: int, height: int):
     return dict(
         sx=jnp.stack(sx, axis=1), sy=jnp.stack(sy, axis=1),
         z=jnp.stack(z, axis=1), inv_w=jnp.stack(iw, axis=1), area=area,
-        # bbox as four dense [S] planes (a [S,4] array pads 4 -> 128
-        # lanes and the binner reads it column-wise)
+        # bbox as four dense [S] planes (the binner reads it
+        # column-wise)
         bbox=(x0, y0, x1, y1), valid=valid,
     )
 
@@ -324,9 +320,8 @@ def bin_triangles(tri, width: int, height: int,
         jnp.where(ok, pk_tri.astype(jnp.int32), -1), mode="drop"
     )[:n_tiles]
     # per-tile counts via binary search on the SORTED tile keys (invalid
-    # keys sit at the end as INT_MAX/stride > n_tiles): ~511 log-time
-    # queries instead of a scatter-add over every pair (~0.7 ms/frame
-    # measured for the segment_sum form)
+    # keys sit at the end as INT_MAX/stride > n_tiles): one log-time
+    # query per tile instead of a scatter-add over every pair
     bounds = jnp.searchsorted(pk_tile, jnp.arange(n_tiles + 1),
                               side="left")
     local_counts = (bounds[1:] - bounds[:-1]).astype(jnp.int32)
@@ -339,76 +334,6 @@ def bin_triangles(tri, width: int, height: int,
     counts = local_counts + jnp.minimum(gcounts[0], k_global)
     overflow = g_overflow + l_overflow
     return ids, counts, local_counts, overflow, (tiles_y, tiles_x)
-
-
-class FusedRasterPrep(NamedTuple):
-    """Inputs for the fused Pallas raster+resolve kernel
-    (:mod:`raster_resolve_pallas`): binned + packed per-tile triangle
-    data.  The resolve tables are built by the shader (they need vertex
-    attributes) and joined at the kernel call."""
-
-    tri_pack: Array      # f32[tiles, K_pad, PACK_CH]
-    counts_walk: Array   # i32[tiles] slots to walk (global + local)
-    ids_w: Array         # i32[tiles, KW] binned ids at the walk width
-    sub_raster: Array    # f32[12, S] per-sub-triangle screen rows
-    overflow: Array      # i32 dropped-triangle count
-    tiles_x: int
-    tiles_y: int
-    width: int
-    height: int
-
-
-def prepare_fused_raster(clip, tri_valid, width: int, height: int,
-                         bin_capacity: int = 2048, chunk: int = 8,
-                         walk_capacity: int = 256) -> FusedRasterPrep:
-    """Clip + setup + bin + pack for the fused kernel.
-
-    The kernel walks up to ``K_GLOBAL + walk_capacity`` slots per tile,
-    predicated per tile on its actual count — replacing the XLA path's
-    light/heavy two-pass split (every tile gets heavy-capacity coverage,
-    not just the 64 fullest).  Locals beyond ``walk_capacity`` are
-    dropped and surface in ``overflow`` exactly like the XLA path's
-    budgets."""
-    from banggameengine_tpu.render.raster_resolve_pallas import (
-        pack_tile_triangles,
-    )
-
-    pad_w = (-width) % TILE_W
-    pad_h = (-height) % TILE_H
-    rw, rh = width + pad_w, height + pad_h
-
-    t = clip.shape[0] // 3
-    clip_tri = clip.reshape(t, 3, 4)
-    sub_clip, sub_bary, sub_valid = clip_near_plane(clip_tri, tri_valid)
-    s = 2 * t
-    sub_clip = sub_clip.reshape(s, 3, 4)
-    sub_bary = sub_bary.reshape(s, 3, 3)
-    sub_valid = sub_valid.reshape(s)
-
-    tri = setup_triangles(sub_clip, sub_valid, width, height)
-    k_local = min(bin_capacity, 2 * t)
-    ids, _counts, local_counts, overflow, (tiles_y, tiles_x) = bin_triangles(
-        tri, rw, rh, k_local=k_local
-    )
-
-    kw = min(K_GLOBAL + walk_capacity, ids.shape[1])
-    ids_w = ids[:, :kw]
-    tri_pack, _k_pad = pack_tile_triangles(
-        ids_w, tri["sx"], tri["sy"], tri["z"], chunk=chunk)
-    local_cap = kw - K_GLOBAL
-    counts_walk = K_GLOBAL + jnp.minimum(local_counts, local_cap)
-    overflow = overflow + jnp.sum(
-        jnp.maximum(local_counts - local_cap, 0))
-
-    sx, sy, cb = tri["sx"], tri["sy"], sub_bary
-    sub_raster = jnp.stack([
-        sx[:, 0], sx[:, 1], sx[:, 2],
-        sy[:, 0], sy[:, 1], sy[:, 2],
-        cb[:, 0, 1], cb[:, 1, 1], cb[:, 2, 1],
-        cb[:, 0, 2], cb[:, 1, 2], cb[:, 2, 2],
-    ])                                                 # [12, S]
-    return FusedRasterPrep(tri_pack, counts_walk, ids_w, sub_raster,
-                           overflow, tiles_x, tiles_y, width, height)
 
 
 def _raster_tile(tile_x0, tile_y0, g_x, g_y, g_z, g_oid, g_cb, g_ok,
@@ -501,9 +426,9 @@ def _raster_tile(tile_x0, tile_y0, g_x, g_y, g_z, g_oid, g_cb, g_ok,
         slotb = jnp.where(better, chunk_off + best, slotb)
         return (zbuf, tid, b1b, b2b, slotb), None
 
-    # unroll=2: the scan carries the [tiles,32,128] planes through HBM
-    # every iteration; unrolling halves the round-trips by keeping the
-    # carry live across the fused pair
+    # unroll=2: the scan carries the [tiles,32,128] planes through device
+    # memory every iteration; unrolling halves the round-trips by keeping
+    # the carry live across the fused pair
     chunk_offs = jnp.arange(n_chunks, dtype=jnp.int32) * chunk
     if slim:
         init = (
@@ -534,7 +459,7 @@ def rasterize(clip, tri_valid, width: int, height: int,
               bin_capacity: int = 2048, chunk: int = 8,
               light_capacity: int = 48, heavy_tiles: int = 64,
               heavy_capacity: int = 256,
-              backend: str = "auto", return_tiled: bool = False,
+              return_tiled: bool = False,
               slim: bool = False,
               ):
     """Full visibility pass.  width/height are padded up to tile multiples
@@ -542,7 +467,7 @@ def rasterize(clip, tri_valid, width: int, height: int,
     (vis, overflow, tiled: TiledVisibility) with ``return_tiled=True`` (the
     deferred shader's per-tile one-hot resolve input).
 
-    ``slim=True`` (XLA backend only): the tile scan carries just
+    ``slim=True``: the tile scan carries just
     (depth, slot) — tri_id/b1/b2 come back None and the tiled shader
     recomputes them per pixel from ``tiled.sub_raster`` (bit-identical).
     Use for the depth-only and tiled-shade paths; the flat gather shade
@@ -605,83 +530,18 @@ def rasterize(clip, tri_valid, width: int, height: int,
             ok=pad_chunk(sel_ids >= 0, False),
         )
 
-    if backend == "auto":
-        # the tuned XLA path currently beats the Pallas kernel (the kernel's
-        # per-triangle scalar extracts dominate; round-2: vectorize the
-        # chunk inside the kernel) — keep XLA as the default everywhere
-        backend = "xla"
-    if backend == "walk":
-        # Tile-vectorized Pallas visibility walk (round 5): ONE
-        # count-adaptive pass covers every tile up to heavy capacity —
-        # replaces the light scan + top-64 heavy re-raster cond.  Slim
-        # output only (depth + slot).
-        from banggameengine_tpu.render.raster_resolve_pallas import (
-            pack_tile_triangles, raster_walk_pallas,
-        )
-
-        kw = min(K_GLOBAL + heavy_capacity, ids.shape[1])
-        ids = ids[:, :kw]
-        tri_pack, _k_pad = pack_tile_triangles(
-            ids, tri["sx"], tri["sy"], tri["z"], chunk=chunk)
-        local_cap = kw - K_GLOBAL
-        counts_walk = K_GLOBAL + jnp.minimum(local_counts, local_cap)
-        overflow = overflow + jnp.sum(
-            jnp.maximum(local_counts - local_cap, 0))
-        dep_p, slot_p = raster_walk_pallas(
-            counts_walk, tri_pack, px=TILE_H * TILE_W, tile_w=TILE_W,
-            tiles_x=tiles_x, chunk=chunk,
-            interpret=jax.default_backend() in ("cpu",))
-        zb = dep_p.reshape(n_tiles, TILE_H, TILE_W)
-        slot = slot_p.reshape(n_tiles, TILE_H, TILE_W)
-        dep_u = (zb.reshape(tiles_y, tiles_x, TILE_H, TILE_W)
-                 .transpose(0, 2, 1, 3).reshape(rh, rw))[:height, :width]
-        vis = VisibilityBuffer(depth=dep_u, tri_id=None, b1=None, b2=None)
-        if return_tiled:
-            sx, sy, cb = tri["sx"], tri["sy"], sub_bary
-            sub_raster = jnp.stack([
-                sx[:, 0], sx[:, 1], sx[:, 2],
-                sy[:, 0], sy[:, 1], sy[:, 2],
-                cb[:, 0, 1], cb[:, 1, 1], cb[:, 2, 1],
-                cb[:, 0, 2], cb[:, 1, 2], cb[:, 2, 2],
-            ])                                         # [12, S]
-            tiled = TiledVisibility(
-                depth=zb, slot=slot, b1=None, b2=None, ids=ids,
-                sub_raster=sub_raster,
-                # non-None sentinel: the whole walk ran at heavy width,
-                # so the shade's resolve must cover ids.shape[1] slots
-                heavy=jnp.zeros((0,), jnp.int32),
-                heavy_needs=jnp.zeros((0,), bool))
-            return vis, overflow, tiled
-        return vis, overflow
-    if backend in ("pallas", "pallas_interpret"):
-        from banggameengine_tpu.render.raster_pallas import raster_tiles_pallas
-
-        slim = False  # the pallas kernel writes the full 5-plane carry
-
-        def raster(d, tile_idx, x0, y0, _tiles_x=tiles_x):
-            del x0, y0  # kernel derives tile origins from tile_idx
-            return raster_tiles_pallas(
-                tile_idx, d["x"], d["y"], d["z"], d["oid"],
-                d["cb"][..., 1], d["cb"][..., 2],
-                d["ok"].astype(jnp.int32), _tiles_x, chunk=chunk,
-                interpret=(backend == "pallas_interpret"),
-            )
-    else:
-        raster = jax.vmap(
-            lambda d, x0, y0: _raster_tile(
-                x0, y0, d["x"], d["y"], d["z"], d["oid"], d["cb"], d["ok"],
-                chunk, slim=slim,
-            ),
-            in_axes=(0, 0, 0),
-        )
-        _xla_raster = raster
-        raster = lambda d, tile_idx, x0, y0: _xla_raster(d, x0, y0)
+    raster = jax.vmap(
+        lambda d, x0, y0: _raster_tile(
+            x0, y0, d["x"], d["y"], d["z"], d["oid"], d["cb"], d["ok"],
+            chunk, slim=slim,
+        ),
+        in_axes=(0, 0, 0),
+    )
 
     # light pass: every tile, global list (first K_GLOBAL slots of `ids`)
     # + first light_capacity locals
     kl = min(K_GLOBAL + light_capacity, ids.shape[1])
-    all_tiles = jnp.arange(n_tiles, dtype=jnp.int32)
-    zb, tid, b1, b2, slot = raster(gathered(ids[:, :kl]), all_tiles, tx, ty)
+    zb, tid, b1, b2, slot = raster(gathered(ids[:, :kl]), tx, ty)
 
     # heavy pass: fullest tiles re-rastered at full capacity.  Behind a
     # lax.cond so frames where no tile exceeds the light capacity (most
@@ -700,18 +560,16 @@ def rasterize(clip, tri_valid, width: int, height: int,
         heavy_needs = local_counts[heavy_sel] > light_local_cap
         # the heavy pass re-rasters at ``heavy_capacity`` LOCAL slots, not
         # the full bin capacity: the demo's worst tiles hold ~170 locals
-        # while the bin list is 2048 deep — re-rastering the whole list
-        # made the heavy branch cost 64*2048 triangle-tile evals (~17 ms
-        # on-chip, the dominant cost of every frame once a dense mesh is
-        # in view).  Locals beyond the heavy capacity are dropped and
+        # while the bin list is 2048 deep, and re-rastering the whole list
+        # would cost 64*2048 triangle-tile evals per frame once a dense
+        # mesh is in view.  Locals beyond the heavy capacity are dropped and
         # surface in the overflow counter like every other budget here.
         kh = min(K_GLOBAL + heavy_capacity, ids.shape[1])
         heavy_local_cap = kh - K_GLOBAL
 
         def heavy_branch(bufs):
             outs_h = raster(
-                gathered(ids[heavy_sel][:, :kh]), heavy_sel.astype(jnp.int32),
-                tx[heavy_sel], ty[heavy_sel]
+                gathered(ids[heavy_sel][:, :kh]), tx[heavy_sel], ty[heavy_sel]
             )
             # only overwrite tiles that actually exceeded the light capacity
             needs = heavy_needs[:, None, None]

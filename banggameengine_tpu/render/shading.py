@@ -24,8 +24,7 @@ Two per-pixel attribute fetch strategies exist:
 - :func:`shade_visibility` (flat): one channel-major ``take`` of the
   [C, T] triangle super-row table by the per-pixel triangle id — one
   row-gather per pixel.
-- :func:`shade_visibility_tiled` (default in the pipeline): a per-tile
-  one-hot MXU resolve.  Each tile's visible triangles are the <= KL
+- :func:`shade_visibility_tiled`: a per-tile one-hot resolve.  Each tile's visible triangles are the <= KL
   entries of its binned id list, so the fetch is ``onehot[px, KL] @
   table[KL, C]`` — dense matmuls instead of 2M row-gathers.  Exact: the
   one-hot has a single 1 per covered pixel, so the contraction selects
@@ -321,8 +320,8 @@ def shade_visibility(
     three corners' attributes AND the triangle's resolved material/texture
     parameters, and one [16, P] texel-quad for the bilinear taps.
     Channel-major matters: the gathers land channel-PLANAR, so every
-    consumer reads a contiguous [P] row instead of slicing a lane-padded
-    [P, C] array (which re-reads 128/C times the data per slice).  An
+    consumer reads a contiguous [P] row instead of a strided column of a
+    [P, C] array.  An
     optimization barrier pins each gather to run once — XLA otherwise
     fuses gathers into every consumer kernel, re-gathering per use.
 
@@ -341,16 +340,13 @@ def shade_visibility(
         reconstruct_wp)
 
     # promise_in_bounds: tid is max(vis_id, 0) and raster ids are < T by
-    # construction — the default clip mode costs a 2M-index clamp+select
-    # pair (~2.9 ms at 1080p, measured in the HLO trace)
+    # construction — the default clip mode adds a clamp+select per index
     a = jax.lax.optimization_barrier(
         tri_row_t.at[:, tid].get(
             mode="promise_in_bounds"))                 # [C, P] ONE gather
 
-    # shade on [H, W] PLANES, not flat [P] rows: a [1, P]-shaped channel
-    # is laid out T(1,128) — one of eight sublanes — and every consumer
-    # fusion inherits the 8x-slower layout (HLO trace round 3).  The
-    # [C, P] -> [C, H, W] reshape is a free bitcast.
+    # shade on [H, W] planes (the [C, P] -> [C, H, W] reshape is a free
+    # bitcast)
     a3 = a.reshape(a.shape[0], h, w)
 
     pxc = jax.lax.broadcasted_iota(jnp.float32, (h, w), 1) + 0.5
@@ -370,12 +366,6 @@ def shade_visibility(
     return jnp.transpose(out, (1, 2, 0))
 
 
-def _resolve_pallas_cached(slot_p, tables_t, interpret):
-    from banggameengine_tpu.render.resolve_pallas import resolve_tiles_pallas
-
-    return resolve_tiles_pallas(slot_p, tables_t, interpret=interpret)
-
-
 def shade_visibility_tiled(
     tiled,                # raster.TiledVisibility
     width: int, height: int,
@@ -393,10 +383,8 @@ def shade_visibility_tiled(
     wireframe: bool = False,
     textures_quad: Array | None = None,
     textures_quad_t: Array | None = None,
-    resolve_backend: str = "xla",
-    raster_max_slots: int | None = None,
 ) -> Array:
-    """Tile-major deferred shade with a per-tile one-hot MXU resolve.
+    """Tile-major deferred shade with a per-tile one-hot resolve.
 
     The per-pixel attribute fetch is ``onehot[px, KL] @ table[KL, C]`` per
     tile (KL = shade_slots covering the light raster list); the contraction
@@ -428,14 +416,6 @@ def shade_visibility_tiled(
 
     slim = tiled.b1 is None
     kl = min(shade_slots, tiled.ids.shape[1])
-    # walk-raster marker (EMPTY heavy list): every tile walked to the
-    # heavy width in one count-adaptive pass, so the resolve must cover
-    # that width for EVERY tile — there is no top-64 heavy subset to
-    # widen selectively (winners in [shade_slots, walk_width) would
-    # otherwise resolve to zero rows: black pixels on dense tiles)
-    if (tiled.heavy is not None and tiled.heavy.shape[0] == 0
-            and heavy_shade_slots > shade_slots):
-        kl = min(heavy_shade_slots, tiled.ids.shape[1])
     ids_kl = tiled.ids[:, :kl]
     if slim:
         # per-SUB-triangle table: each original triangle's channels
@@ -452,159 +432,85 @@ def shade_visibility_tiled(
         tables = tri_row_t.T[jnp.maximum(ids_kl, 0) // 2]  # [tiles, KL, C]
 
     slot_p = tiled.slot.reshape(n_tiles, px_per_tile)
-    # heavy-pass winners beyond the resolve table take a row-gather
-    # fallback, runtime-skipped when no pixel needs it
-    need_fb = slot_p >= kl
 
-    if resolve_backend == "auto":
-        # Mosaic resolve on a real accelerator (measured: 18.5 ms frame vs
-        # 19.6 XLA one-hot vs 23.0 gather at 1080p, r4); XLA one-hot on CPU
-        # (tests/virtual meshes — interpret-mode Pallas there is way slower)
-        resolve_backend = ("pallas" if jax.default_backend() not in ("cpu",)
-                          else "xla")
+    def onehot_resolve(tabs, slots, k):
+        """[n, k, C] tables + [n, px] slots -> [n, C, px] via bf16
+        one-hot contractions.
 
-    def _fb_rows():
+        The one-hot is built in bf16 (0/1 are exact; half the memory
+        traffic of an f32 one-hot) and materialized ONCE behind a barrier:
+        without it XLA fuses the compare into the contraction and re-reads
+        it per channel.  Per-operand precision keeps the f32 payload rows
+        EXACT (HIGHEST) while the already-bf16 one-hot side stays
+        single-pass.
+
+        Contractions WIDER than 128 slots are chunked into <=128-slot dots
+        and summed.  The sum is exact — every pixel's slot lands in exactly
+        one chunk, the rest contribute zeros."""
+        parts = []
+        for lo in range(0, k, 128):
+            kc = min(128, k - lo)
+            ohc = (slots[..., None]
+                   == (lo + jnp.arange(kc))[None, None, :]).astype(
+                       jnp.bfloat16)                   # [n, px, kc]
+            ohc = jax.lax.optimization_barrier(ohc)
+            parts.append(jax.lax.dot_general(
+                jnp.swapaxes(tabs[:, lo:lo + kc, :], 1, 2), ohc,
+                dimension_numbers=(((2,), (2,)), ((0,), (0,))),
+                preferred_element_type=jnp.float32,
+                precision=(jax.lax.Precision.HIGHEST,
+                           jax.lax.Precision.DEFAULT)))
+        res = parts[0]
+        for p in parts[1:]:
+            res = res + p
+        # barrier the dot itself so the channel split below stays a pure
+        # relayout copy
+        return jax.lax.optimization_barrier(res)
+
+    # batch t, contract KL: [t, C, KL] x [t, px, KL] -> [t, C, px]
+    resolved = onehot_resolve(tables, slot_p, kl)
+    covered = kl
+    if tiled.heavy is not None and heavy_shade_slots > kl:
+        # heavy-pass tiles get a SECOND, wider resolve over their own id
+        # lists (covering the heavy raster's slot space) instead of the
+        # per-pixel row-gather fallback
+        kh = min(heavy_shade_slots, tiled.ids.shape[1])
+        hsel = tiled.heavy
+        ids_h = tiled.ids[hsel][:, :kh]
+        tab_h = (sub_row_t.T[jnp.maximum(ids_h, 0)] if slim
+                 else tri_row_t.T[jnp.maximum(ids_h, 0) // 2])
+        res_h = onehot_resolve(tab_h, slot_p[hsel], kh)
+        res_h = jnp.where(tiled.heavy_needs[:, None, None], res_h,
+                          resolved[hsel])
+        resolved = resolved.at[hsel].set(res_h)
+        covered = kh
+    # split into per-channel [t, px] planes behind ONE barrier.  Do NOT
+    # transpose to [C, t, px] and slice that: XLA may fold the transpose
+    # into a layout relabel (barriers pin values, not layouts), and every
+    # per-channel slice then re-reads the whole array.  Separate plane
+    # buffers are layout-proof.
+    n_chan = resolved.shape[1]
+    planes = jax.lax.optimization_barrier(
+        tuple(resolved[:, c, :] for c in range(n_chan)))
+    # safety net for winners beyond the resolved slot space (only
+    # reachable when the caller's shade/heavy widths understate the
+    # raster's walk widths); runtime-skipped otherwise
+    need_fb = slot_p >= covered
+
+    def _fb_planes(planes_):
         sid = jnp.take_along_axis(tiled.ids, jnp.maximum(slot_p, 0), axis=1)
         if slim:
-            return jnp.take(sub_row_t, jnp.where(need_fb, sid, 0),
-                            axis=1)                        # [C+12, t, px]
-        return jnp.take(tri_row_t, jnp.where(need_fb, sid // 2, 0),
-                        axis=1)                            # [C, t, px]
+            rows = jnp.take(sub_row_t, jnp.where(need_fb, sid, 0),
+                            axis=1)                    # [C+12, t, px]
+        else:
+            rows = jnp.take(tri_row_t, jnp.where(need_fb, sid // 2, 0),
+                            axis=1)                    # [C, t, px]
+        return tuple(jnp.where(need_fb, rows[c], p)
+                     for c, p in enumerate(planes_))
 
-    if resolve_backend in ("pallas", "pallas_interpret"):
-        # ONE unified kernel covers light AND heavy widths: the table is
-        # built at the heavy raster walk width and the kernel predicates
-        # the wide one-hot chunks per tile on its max winning slot — the
-        # ~90% light-only tiles pay one 128-chunk, only heavy tiles pay
-        # three.  This replaced a 4-step (light resolve, heavy resolve,
-        # one-hot MXU merge, fallback cond) that moved ~3 extra
-        # framebuffer-size buffers through HBM (~3.9 ms measured r4).
-        from banggameengine_tpu.render.resolve_pallas import (
-            resolve_tiles_pallas_wide,
-        )
-
-        interp = resolve_backend == "pallas_interpret"
-        covered = kl
-        if tiled.heavy is not None and heavy_shade_slots > kl:
-            covered = min(heavy_shade_slots, tiled.ids.shape[1])
-        ids_w = tiled.ids[:, :covered]
-        tab_w = (sub_row_t.T[jnp.maximum(ids_w, 0)] if slim
-                 else tri_row_t.T[jnp.maximum(ids_w, 0) // 2])
-        max_slot = slot_p.max(axis=1)                  # i32[tiles]
-        resolved_cp = resolve_tiles_pallas_wide(
-            slot_p, jnp.swapaxes(tab_w, 1, 2), max_slot,
-            interpret=interp)                          # [C, tiles, px]
-        # split into per-channel [t, px] plane BUFFERS behind one barrier,
-        # exactly like the XLA branch below: the kernel's [C, t, px]
-        # channel-major output slices planes for free, but downstream
-        # consumers slicing a single shared array let XLA relabel its
-        # layout (lane-padding the minor dims per its own cost model) —
-        # separate plane buffers are layout-proof
-        n_chan = resolved_cp.shape[0]
-        planes = jax.lax.optimization_barrier(
-            tuple(resolved_cp[c] for c in range(n_chan)))
-        # slot values are bounded by the raster walk widths; when the
-        # resolve table covers the full heavy walk the fallback is
-        # statically impossible — skipping the cond matters because an
-        # UNTAKEN XLA cond still materializes its 40 plane operands
-        # (~0.9 ms/frame measured)
-        slot_ceiling = tiled.ids.shape[1]
-        if raster_max_slots is not None:
-            slot_ceiling = min(raster_max_slots, tiled.ids.shape[1])
-        if covered < slot_ceiling:
-            need_fb = slot_p >= covered
-
-            def _fb_planes_p(planes_):
-                rows = _fb_rows()                       # [C, t, px]
-                return tuple(jnp.where(need_fb, rows[c], p)
-                             for c, p in enumerate(planes_))
-
-            planes = jax.lax.cond(
-                jnp.any(need_fb), _fb_planes_p, lambda p: p, planes)
-        get = lambda c: planes[c]
-    else:
-        def onehot_resolve(tabs, slots, k):
-            """[n, k, C] tables + [n, px] slots -> [n, C, px] via bf16
-            one-hot MXU contractions.
-
-            The one-hot is built in bf16 (0/1 are exact; HALF the HBM
-            traffic of the f32 one-hot — the dominant cost of this
-            resolve) and materialized ONCE behind a barrier: without it
-            XLA fuses the compare into the contraction and lowers it as
-            one slice+reduce fusion PER CHANNEL on the VPU (~28 x 1.4 ms
-            measured).  Per-operand precision keeps the f32 payload rows
-            EXACT (HIGHEST = 3x-bf16 split) while the already-bf16
-            one-hot side stays single-pass.
-
-            Contractions WIDER than 128 slots are chunked into <=128-slot
-            dots and summed: XLA implements the wide-K batched dot
-            channel-by-channel on the VPU, re-reading the whole one-hot
-            per channel (the 40 x 1.42 ms slice_reduce fusions in the
-            round-4 device trace).  The sum is exact — every pixel's slot
-            lands in exactly one chunk, the rest contribute zeros."""
-            parts = []
-            for lo in range(0, k, 128):
-                kc = min(128, k - lo)
-                ohc = (slots[..., None]
-                       == (lo + jnp.arange(kc))[None, None, :]).astype(
-                           jnp.bfloat16)                   # [n, px, kc]
-                ohc = jax.lax.optimization_barrier(ohc)
-                parts.append(jax.lax.dot_general(
-                    jnp.swapaxes(tabs[:, lo:lo + kc, :], 1, 2), ohc,
-                    dimension_numbers=(((2,), (2,)), ((0,), (0,))),
-                    preferred_element_type=jnp.float32,
-                    precision=(jax.lax.Precision.HIGHEST,
-                               jax.lax.Precision.DEFAULT)))
-            res = parts[0]
-            for p in parts[1:]:
-                res = res + p
-            # barrier the dot itself so the channel-leading transpose
-            # below stays a pure relayout copy
-            return jax.lax.optimization_barrier(res)
-
-        # batch t, contract KL: [t, C, KL] x [t, px, KL] -> [t, C, px]
-        resolved = onehot_resolve(tables, slot_p, kl)
-        covered = kl
-        if tiled.heavy is not None and heavy_shade_slots > kl:
-            # heavy-pass tiles get a SECOND, wider resolve over their own
-            # id lists (covering the heavy raster's slot space) instead of
-            # the per-pixel row-gather fallback — the multi-dim take
-            # measured ~27 ms/frame on chip vs ~2 ms for this contraction
-            # over the <=64 heavy tiles
-            kh = min(heavy_shade_slots, tiled.ids.shape[1])
-            hsel = tiled.heavy
-            ids_h = tiled.ids[hsel][:, :kh]
-            tab_h = (sub_row_t.T[jnp.maximum(ids_h, 0)] if slim
-                     else tri_row_t.T[jnp.maximum(ids_h, 0) // 2])
-            res_h = onehot_resolve(tab_h, slot_p[hsel], kh)
-            res_h = jnp.where(tiled.heavy_needs[:, None, None], res_h,
-                              resolved[hsel])
-            resolved = resolved.at[hsel].set(res_h)
-            covered = kh
-        # split into per-channel [t, px] planes behind ONE barrier.  Do
-        # NOT transpose to [C, t, px] and slice that: XLA folds the
-        # transpose into a LAYOUT relabel (barriers pin values, not
-        # layouts), leaving channels on the minor dim lane-padded 40->128
-        # — every per-channel slice then physically re-reads the whole
-        # ~1 GB padded array (40 x 1.42 ms of slice_reduce fusions in the
-        # round-4 device trace, the entire tiled-shade anomaly).
-        # Separate plane buffers are layout-proof.
-        n_chan = resolved.shape[1]
-        planes = jax.lax.optimization_barrier(
-            tuple(resolved[:, c, :] for c in range(n_chan)))
-        # safety net for winners beyond the resolved slot space (only
-        # reachable when the caller's shade/heavy widths understate the
-        # raster's walk widths); runtime-skipped otherwise
-        need_fb = slot_p >= covered
-
-        def _fb_planes(planes_):
-            rows = _fb_rows()                           # [C, t, px]
-            return tuple(jnp.where(need_fb, rows[c], p)
-                         for c, p in enumerate(planes_))
-
-        planes = jax.lax.cond(
-            jnp.any(need_fb), _fb_planes, lambda p: p, planes)
-        get = lambda c: planes[c]
+    planes = jax.lax.cond(
+        jnp.any(need_fb), _fb_planes, lambda p: p, planes)
+    get = lambda c: planes[c]
 
     if slim:
         b1 = b2 = None
@@ -672,71 +578,6 @@ def _shade_tiled_tail(get, slot_p, ndc_z, b1, b2, layout, rb,
     return out[:height, :width]
 
 
-def shade_visibility_fused(
-    prep,                 # raster.FusedRasterPrep
-    width: int, height: int,
-    # per-vertex attributes (V = 3*T)
-    world_pos: Array, world_nrm: Array, v_uv: Array, inv_w: Array,
-    tri_material: Array,
-    # material tables
-    mat_base_tint: Array, mat_uv_scale: Array, mat_spec_params: Array,
-    mat_spec_color: Array, mat_tex: Array,
-    textures: Array, tex_size: Array,
-    camera_pos: Array, light: LightParams,
-    view: Array, proj: Array,
-    wireframe: bool = False,
-    textures_quad: Array | None = None,
-    textures_quad_t: Array | None = None,
-    interpret: bool = False,
-    return_depth: bool = False,
-):
-    """Deferred shade over the FUSED Pallas raster+resolve kernel
-    (:mod:`raster_resolve_pallas`): the per-tile visibility walk and the
-    one-hot attribute resolve run in one kernel, so the depth/slot
-    planes never round-trip HBM between raster and shade.  Slim-carry
-    semantics (barycentrics recomputed per pixel from the resolved
-    raster rows) — bit-identical to ``shade_visibility_tiled`` on
-    scenes where every dense tile ranks in the XLA path's heavy-pass
-    top-64 (the fused walk covers EVERY tile to heavy capacity)."""
-    from banggameengine_tpu.render.raster import TILE_H, TILE_W
-    from banggameengine_tpu.render.raster_resolve_pallas import (
-        raster_resolve_tiles_pallas,
-    )
-
-    tri_row_t, layout = _pack_tri_rows(
-        world_pos, world_nrm, v_uv, inv_w, tri_material,
-        mat_base_tint, mat_uv_scale, mat_spec_color, mat_tex, tex_size,
-        reconstruct_wp=True)
-    rb = tri_row_t.shape[0]
-    sub_row_t = jnp.concatenate(
-        [jnp.repeat(tri_row_t, 2, axis=1), prep.sub_raster], axis=0)
-    tables = sub_row_t.T[jnp.maximum(prep.ids_w, 0)]   # [tiles, KW, C+12]
-
-    px_per_tile = TILE_H * TILE_W
-    depth_p, slot_p, resolved = raster_resolve_tiles_pallas(
-        prep.counts_walk, prep.tri_pack, jnp.swapaxes(tables, 1, 2),
-        px=px_per_tile, tile_w=TILE_W, tiles_x=prep.tiles_x,
-        interpret=interpret)
-    n_chan = resolved.shape[0]
-    planes = jax.lax.optimization_barrier(
-        tuple(resolved[c] for c in range(n_chan)))
-    get = lambda c: planes[c]
-
-    n_tiles = prep.tiles_x * prep.tiles_y
-    frame = _shade_tiled_tail(
-        get, slot_p, depth_p, None, None, layout, rb,
-        n_tiles, prep.tiles_x, prep.tiles_y, TILE_H, TILE_W,
-        width, height,
-        textures, textures_quad, textures_quad_t,
-        camera_pos, light, view, proj, wireframe)
-    if return_depth:
-        rh, rw = prep.tiles_y * TILE_H, prep.tiles_x * TILE_W
-        dep = (depth_p.reshape(prep.tiles_y, prep.tiles_x, TILE_H, TILE_W)
-               .transpose(0, 2, 1, 3).reshape(rh, rw))[:height, :width]
-        return frame, dep
-    return frame
-
-
 def _sample_bilinear_planar(textures, textures_quad, textures_quad_t,
                             tex_id, tw, th, u, v):
     """Bilinear, wrap-repeat sampling in component form.
@@ -765,11 +606,7 @@ def _sample_bilinear_planar(textures, textures_quad, textures_quad_t,
         x0i = wrap(x0, tw)
         y0i = wrap(y0, th)
         # barrier the INDEX itself: without it XLA fuses the whole
-        # mod/mul-add chain into the gather's index-prep loop, which runs
-        # in the gather's s32[P,1] T(1,128) layout — 1 of 8 sublanes used,
-        # ~2 ms of the 1080p frame for ~6 integer passes (HLO trace).
-        # Computed standalone it runs in T(8,128) and only the final
-        # layout copy pays the narrow format.
+        # mod/mul-add chain into the gather's index computation
         flat = jax.lax.optimization_barrier(
             ((tex_id * s + y0i) * s + x0i).reshape(-1))
         # gather with a FLAT index vector (multi-dim index arrays lower to

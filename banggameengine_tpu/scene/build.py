@@ -1,6 +1,6 @@
 """Scene build: SceneDesc + assets -> device SoA (StaticScene/WorldState/RenderScene).
 
-This is the TPU-era image of the reference's scene instantiation path
+This is the array image of the reference's scene instantiation path
 (``SceneLoader.cpp:652-745`` building a fresh ``Scene`` +
 ``PhysicsSystem::Ensure*`` mirroring entities into Bullet,
 ``PhysicsSystem.cpp:1222-1319``): all per-entity maps become fixed-capacity
@@ -86,7 +86,7 @@ class RenderScene:
     # the same texel-quad data pre-transposed to channel-major [16, T*S*S]:
     # the deferred shader gathers per-pixel taps with take(..., axis=1) so
     # the result lands channel-planar ([16, P] rows) without a 2M-row
-    # transpose or lane-padded [P, 16] intermediates
+    # transpose or [P, 16] intermediates
     textures_quad_t: jax.Array  # u8[16, T*S*S]
 
     # per-entity object-space AABB over its vertices (for culling)
@@ -545,7 +545,7 @@ def _build_render_scene(
         edge_entity = np.zeros(1, np.int32)
     edge_valid = np.ones(len(edge_entity), bool) if edge_map else np.zeros(1, bool)
 
-    # pad triangle count to a multiple of 128 lanes
+    # pad triangle count to a multiple of 128
     n_tri = len(tri_material)
     pad_tri = (-n_tri) % 128
     tri_valid = np.ones(n_tri, bool)

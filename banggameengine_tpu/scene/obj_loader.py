@@ -5,7 +5,7 @@ Host-side replacement for the reference's tinyobjloader wrapper
 
 - triangulates polygons (fan), emits **unshared** vertices — one vertex per
   face corner, no dedup (``ObjLoader.cpp:144-177``) — which vectorizes
-  perfectly on TPU;
+  perfectly;
 - computes the face normal when a corner has no normal index
   (``ObjLoader.cpp:34-44``);
 - optional V flip, default **on** (``ObjLoader.h:23``);

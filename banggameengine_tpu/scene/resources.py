@@ -9,8 +9,8 @@ and graceful fallbacks (checker texture / default material,
 for device upload instead of bgfx handles.
 
 Assets-root discovery order (mirrors ``ResourceManager.cpp:66-106``):
-``BANG_ASSETS_DIR`` env -> explicit ctor arg -> ``./assets`` ->
-``/root/reference/assets`` (the mounted demo content).
+``BANG_ASSETS_DIR`` env -> explicit ctor arg -> ``./assets`` -> the
+checkout's ``assets/``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ log = logging.getLogger("RES")
 _DEFAULT_SEARCH = (
     "assets",
     os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "assets"),
-    "/root/reference/assets",
 )
 
 

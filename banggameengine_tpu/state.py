@@ -1,6 +1,6 @@
 """Core state pytrees: WorldState, StaticScene, InputFrame, StepEvents.
 
-TPU-native replacement for the reference's pointer-graph ECS
+Array-native replacement for the reference's pointer-graph ECS
 (``src/ecs/Scene.h:24-108``: per-entity ``unordered_map`` component stores and
 a ``bitset<32>`` mask).  Here the whole world is one fixed-capacity
 structure-of-arrays pytree resident in HBM; ``jax.vmap`` over the leading axis
@@ -86,7 +86,7 @@ class WorldState:
     #                                  PhysicsSystem.cpp:1062-1072)
 
     # --- persistent contact cache (warm starting) ---
-    # The TPU image of Bullet's persistent manifolds (the default collision
+    # The array image of Bullet's persistent manifolds (the default collision
     # configuration keeps face-clipped manifolds + accumulated impulses
     # across steps, PhysicsSystem.cpp:124-128): per solved contact slot, a
     # feature id ((partner+1)*FEAT_STRIDE + narrowphase slot; ground slots

@@ -1,7 +1,7 @@
 """Checkpoint / resume of simulation state.
 
 The reference has **no** save-game mechanism (SURVEY.md §5: closest is the F5
-full scene reset).  Because the TPU build's whole world is one pytree of
+full scene reset).  Because the array build's whole world is one pytree of
 arrays, checkpointing falls out naturally: a WorldState (single- or
 many-world batched) round-trips through a compressed ``.npz`` with field
 names preserved, plus a small JSON header for versioning/metadata.

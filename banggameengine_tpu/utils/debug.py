@@ -1,7 +1,7 @@
 """Debug/validation mode: NaN & divergence guards for the jitted step.
 
 The reference relies on single-threaded mutation plus manual HUD checks
-(dirty-count invariant at ``Application.cpp:283-292``); the TPU build's
+(dirty-count invariant at ``Application.cpp:283-292``); the array build's
 functional step can't race, so the sanitizer budget goes to **numeric**
 safety instead (SURVEY.md §5): ``checkify``-instrumented stepping that
 reports NaN/Inf state corruption and runaway velocities with the failing

@@ -19,15 +19,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--assets", default=os.environ.get(
-        "BANG_ASSETS_DIR", "/root/reference/assets"))
+    p.add_argument("--assets", default=os.environ.get("BANG_ASSETS_DIR"),
+                   help="asset root (default: the demo scene generated "
+                        "from seed 0 under build/)")
     p.add_argument("--seconds", type=float, default=8.0)
     p.add_argument("--fps", type=int, default=30)
     p.add_argument("--width", type=int, default=640)
     p.add_argument("--height", type=int, default=360)
     p.add_argument("--record", default=None, help="PNG output directory")
     p.add_argument("--overlay", action="store_true", help="physics debug overlay")
-    p.add_argument("--platform", default=None, help="cpu|tpu (default: auto)")
+    p.add_argument("--platform", default=None, help="cpu|gpu (default: auto)")
     p.add_argument("--fused", action=__import__("argparse").BooleanOptionalAction,
                    default=True,
                    help="drive the fused interactive tick (substeps + frame "
@@ -50,6 +51,10 @@ def main():
     from banggameengine_tpu.app import Application
     from banggameengine_tpu.app.window import HeadlessWindow
 
+    if args.assets is None:
+        from banggameengine_tpu.scene.synthetic import demo_assets_dir
+
+        args.assets = demo_assets_dir(0)
     window = HeadlessWindow(args.width, args.height, record_dir=args.record)
     # the debug overlay renders through the separate step/render path
     fused = args.fused and not args.overlay

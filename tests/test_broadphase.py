@@ -1,7 +1,11 @@
-"""Grid broadphase + neighbor-list solver tests: parity vs the dense path
-and large-world scale behavior (driver config #2)."""
+"""Broadphase tests: the grid and blocked-AABB neighbor lists, parity vs
+the dense path and brute force, and large-world scale behavior."""
+
+import os
+import sys
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -112,3 +116,100 @@ class TestGridStepParity:
         landed = np.abs(np.asarray(state.lin_vel[:200, 1])) < 0.05
         assert landed.sum() > 15  # spawn heights reach y~102; most still fall
         np.testing.assert_allclose(pos[landed, 1].min(), 0.5, atol=0.1)
+
+
+def _aabb_case(name):
+    """-> (mn, mx, dyn, layer, mask) inputs of neighbor_lists_aabb."""
+    rng = np.random.default_rng(7)
+    if name == "saturated_pile":
+        # 4x4x6 boxes at 0.98 spacing: every interior box overlaps more
+        # partners than the 8-slot cap
+        g = np.stack(np.meshgrid(np.arange(4), np.arange(6), np.arange(4),
+                                 indexing="ij"), -1).reshape(-1, 3) * 0.98
+        pos = g.astype(np.float32)
+    elif name == "n_below_k":
+        pos = np.asarray([[0, 0, 0], [0.5, 0, 0], [0.9, 0.3, 0]], np.float32)
+    else:
+        pos = rng.uniform(-6, 6, (300, 3)).astype(np.float32)
+    n = len(pos)
+    half = rng.uniform(0.3, 0.9, (n, 3)).astype(np.float32)
+    dyn = np.ones(n, np.int32)
+    layer = np.ones(n, np.int32)
+    mask = np.full(n, -1, np.int32)
+    if name == "mixed_flags":
+        dyn = rng.choice([-1, 0, 1], n).astype(np.int32)   # not solid/static
+        layer = rng.choice([1, 2, 4], n).astype(np.int32)
+        mask = rng.choice([-1, 1, 3, 6], n).astype(np.int32)
+    return pos - half, pos + half, dyn, layer, mask
+
+
+def _aabb_impl(name):
+    import functools
+
+    from banggameengine_tpu.physics.broadphase import neighbor_lists_aabb
+    from banggameengine_tpu.physics.broadphase_triton import (
+        neighbor_lists_aabb_triton, neighbor_lists_sorted,
+    )
+
+    return {
+        "plain_block64": functools.partial(neighbor_lists_aabb,
+                                           block_rows=64),
+        "plain": neighbor_lists_aabb,
+        # the Pallas kernel, interpreted on the CPU
+        "triton_interpret": functools.partial(neighbor_lists_aabb_triton,
+                                              interpret=True),
+        # the stress route's dispatch: the plain version off CUDA
+        "sorted_route": neighbor_lists_sorted,
+    }[name]
+
+
+@pytest.mark.parametrize("case", ["random", "saturated_pile", "mixed_flags",
+                                  "n_below_k"])
+@pytest.mark.parametrize("impl", ["plain_block64", "plain",
+                                  "triton_interpret", "sorted_route"])
+def test_aabb_neighbor_lists_match_brute_force(case, impl):
+    """The blocked all-pairs broadphase keeps exactly the first k partners
+    (ascending) of the NumPy brute force, and counts the rest."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
+    from chip_smoke import brute_force_neighbors
+
+    args = _aabb_case(case)
+    nl = _aabb_impl(impl)(*(jnp.asarray(a) for a in args), max_neighbors=8)
+    idx, counts = brute_force_neighbors(*args, k=8)
+    np.testing.assert_array_equal(np.asarray(nl.idx), idx)
+    np.testing.assert_array_equal(np.asarray(nl.valid), idx >= 0)
+    assert int(nl.nbr_overflow) == int(np.maximum(counts - 8, 0).sum())
+    if case == "saturated_pile":
+        assert int(nl.nbr_overflow) > 0
+
+
+def test_morton_key_orders_space():
+    """Morton-sorted neighbours in x/z land close together in the order."""
+    from banggameengine_tpu.physics.broadphase import morton_key_xz
+
+    g = np.stack(np.meshgrid(np.arange(16), np.arange(16), indexing="ij"),
+                 -1).reshape(-1, 2).astype(np.float32)
+    pos = jnp.asarray(np.stack([g[:, 0], np.zeros(256), g[:, 1]], 1))
+    key = np.asarray(morton_key_xz(pos, cell=1.0))
+    assert len(np.unique(key)) == 256 and (key >= 0).all()
+    rank = np.argsort(np.argsort(key))
+    # each aligned 2x2 quad of cells occupies 4 consecutive ranks
+    quad = rank.reshape(8, 2, 8, 2).transpose(0, 2, 1, 3).reshape(64, 4)
+    assert (np.ptp(quad, axis=1) == 3).all()
+
+
+def test_sorted_route_lowers_the_kernel_only_for_cuda():
+    """The stress route picks the Pallas kernel when lowered for a CUDA GPU
+    and the plain version for the CPU, from the lowering platform."""
+    import functools
+
+    from banggameengine_tpu.physics.broadphase_triton import (
+        neighbor_lists_sorted,
+    )
+
+    args = tuple(jnp.asarray(a) for a in _aabb_case("random"))
+    traced = jax.jit(functools.partial(neighbor_lists_sorted,
+                                       max_neighbors=8)).trace(*args)
+    cuda = traced.lower(lowering_platforms=("cuda",)).as_text()
+    cpu = traced.lower(lowering_platforms=("cpu",)).as_text()
+    assert "triton" in cuda.lower() and "triton" not in cpu.lower()

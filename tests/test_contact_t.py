@@ -172,10 +172,10 @@ def test_solve_t_matches_general_solver():
 
 
 def test_pallas_step_trajectory_matches_grid():
-    """Full engine steps: broadphase='pallas' tracks broadphase='grid'
-    (interpret-mode kernel on CPU) and produces sane resting piles."""
+    """Full engine steps: broadphase='sorted' tracks broadphase='grid'
+    and produces sane resting piles."""
     state0, static = build_falling_boxes(32, seed=11, spread=3.0)
-    fn_p = make_step_fn(static, donate=False, broadphase="pallas")
+    fn_p = make_step_fn(static, donate=False, broadphase="sorted")
     fn_g = make_step_fn(static, donate=False, broadphase="grid",
                         grid_cell_size=2.5, grid_table_size=1024,
                         max_neighbors=8)
@@ -189,7 +189,7 @@ def test_pallas_step_trajectory_matches_grid():
     # everything on/above the ground plane
     assert (pp[:, 1] > 0.3).all()
     # tracks the grid path closely (exact equality is not expected: the
-    # sorted-space pallas path sums Jacobi impulses in a different neighbor
+    # sorted-space path sums Jacobi impulses in a different neighbor
     # order -> fp drift, which 2 s of chaotic piling amplifies on a few
     # bodies).  Median must stay tight; a loose cap bounds the outliers.
     diff = np.abs(pp - pg)
@@ -204,5 +204,5 @@ def test_pallas_step_rejects_capsule_scenes():
     static = dataclasses.replace(
         static, shape_type=static.shape_type.at[0].set(2))
     with pytest.raises(ValueError, match="box-only"):
-        fn = make_step_fn(static, donate=False, broadphase="pallas")
+        fn = make_step_fn(static, donate=False, broadphase="sorted")
         fn(state, InputFrame.zero())

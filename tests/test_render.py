@@ -218,7 +218,7 @@ class TestDemoRender:
         assert non_sky[h - 10].mean() > 0.9
 
     def test_tiled_resolve_matches_gather_shade(self, demo):
-        """The per-tile one-hot MXU resolve against the global row-gather
+        """The per-tile one-hot resolve against the global row-gather
         shade.  The one-hot selects whole f32 rows, so the resolve itself
         is exact; the SLIM raster carry recomputes the winning triangle's
         barycentrics per pixel with the same op sequence, where XLA's
@@ -349,142 +349,6 @@ class TestDemoRender:
             shade_slots=kl, textures_quad=tq, textures_quad_t=tqt))
         d = np.abs(c.astype(int) - b.astype(int))
         assert d.max() <= 1 and (d > 0).mean() < 1e-3
-
-    def test_fused_raster_resolve_matches_tiled(self, demo):
-        """The FUSED Pallas raster+resolve kernel (interpret mode on CPU)
-        against the default tiled path: bit-exact on the demo scene (all
-        dense tiles rank within the XLA heavy top-64, so coverage is
-        identical)."""
-        cam = Camera()
-        state = demo.initial_state
-        w, h = 320, 180
-        args = (demo.render, state.world, cam.view_matrix(),
-                cam.proj_matrix(w / h), jnp.asarray(cam.position))
-        a = np.asarray(render_frame(*args, width=w, height=h,
-                                    shade_mode="tiled")).astype(int)
-        b = np.asarray(render_frame(*args, width=w, height=h,
-                                    shade_mode="fused")).astype(int)
-        np.testing.assert_array_equal(a, b)
-
-    def test_fused_raster_resolve_dense_tiles(self, demo):
-        """Zoomed onto the dense character mesh (the heavy-pass regime):
-        the fused kernel's count-adaptive walk must cover the dense tiles
-        exactly like the light+heavy XLA split."""
-        from banggameengine_tpu import math3d
-
-        state = demo.initial_state
-        cam = Camera()
-        w, h = 320, 180
-        view = math3d.mtx_look_at(jnp.asarray([0.0, 7.1, -6.0]),
-                                  jnp.asarray([0.0, 7.0, -5.0]))
-        args = (demo.render, state.world, view,
-                cam.proj_matrix(w / h), jnp.asarray(cam.position))
-        a = np.asarray(render_frame(*args, width=w, height=h,
-                                    shade_mode="tiled")).astype(int)
-        b = np.asarray(render_frame(*args, width=w, height=h,
-                                    shade_mode="fused")).astype(int)
-        np.testing.assert_array_equal(a, b)
-
-    def test_walk_backend_matches_xla_slim(self, demo):
-        """The tile-vectorized Pallas visibility walk (interpret mode on
-        CPU) against the XLA light+heavy scan: slot/depth bit-equal and
-        the shaded frame bit-equal on the demo scene."""
-        from banggameengine_tpu.render import raster as rz
-        from banggameengine_tpu.render.cull import entity_frustum_mask
-
-        cam = Camera()
-        state = demo.initial_state
-        w, h = 320, 180
-        rs = demo.render
-        view = jnp.asarray(cam.view_matrix())
-        proj = jnp.asarray(cam.proj_matrix(w / h))
-        vis_ent = entity_frustum_mask(
-            rs.ent_aabb_min, rs.ent_aabb_max, rs.ent_has_mesh,
-            state.world, view, proj)
-        tri_valid = rs.tri_valid & vis_ent[rs.v_entity[::3]]
-        _, clip = rz.transform_vertices(
-            rs.v_pos, rs.v_entity, state.world, view, proj)
-        _, _, ts = rz.rasterize(clip, tri_valid, w, h, bin_capacity=2048,
-                                return_tiled=True, slim=True)
-        _, _, tw = rz.rasterize(clip, tri_valid, w, h, bin_capacity=2048,
-                                return_tiled=True, backend="walk")
-        np.testing.assert_array_equal(np.asarray(ts.slot),
-                                      np.asarray(tw.slot))
-        np.testing.assert_array_equal(np.asarray(ts.depth),
-                                      np.asarray(tw.depth))
-
-        args = (demo.render, state.world, view, cam.proj_matrix(w / h),
-                jnp.asarray(cam.position))
-        a = np.asarray(render_frame(*args, width=w, height=h)).astype(int)
-        b = np.asarray(render_frame(*args, width=w, height=h,
-                                    raster_backend="walk")).astype(int)
-        np.testing.assert_array_equal(a, b)
-
-        # dense-tile regime (zoomed onto the character mesh): winners land
-        # beyond the light shade width, exercising the walk-mode resolve
-        # widening (winners in [shade_slots, walk_width) once resolved to
-        # zero rows — black pixels — on exactly this kind of view)
-        from banggameengine_tpu import math3d
-
-        zview = math3d.mtx_look_at(jnp.asarray([0.0, 7.1, -6.0]),
-                                   jnp.asarray([0.0, 7.0, -5.0]))
-        zargs = (demo.render, state.world, zview, cam.proj_matrix(w / h),
-                 jnp.asarray(cam.position))
-        a = np.asarray(render_frame(*zargs, width=w, height=h)).astype(int)
-        b = np.asarray(render_frame(*zargs, width=w, height=h,
-                                    raster_backend="walk")).astype(int)
-        np.testing.assert_array_equal(a, b)
-
-    def test_pallas_resolve_matches_xla_resolve(self, demo):
-        """The VMEM one-hot resolve kernel (interpret mode on CPU) is
-        bit-exact against the XLA einsum resolve."""
-        from banggameengine_tpu.render import raster as rz
-        from banggameengine_tpu.render.shading import (
-            LightParams, shade_visibility_tiled,
-        )
-        from banggameengine_tpu.render.cull import entity_frustum_mask
-        from banggameengine_tpu import math3d
-
-        cam = Camera()
-        state = demo.initial_state
-        w, h = 320, 180
-        rs = demo.render
-        view = jnp.asarray(cam.view_matrix())
-        proj = jnp.asarray(cam.proj_matrix(w / h))
-        vis_ent = entity_frustum_mask(
-            rs.ent_aabb_min, rs.ent_aabb_max, rs.ent_has_mesh,
-            state.world, view, proj)
-        tri_valid = rs.tri_valid & vis_ent[rs.v_entity[::3]]
-        _, clip = rz.transform_vertices(
-            rs.v_pos, rs.v_entity, state.world, view, proj)
-        vis, _, tiled = rz.rasterize(clip, tri_valid, w, h,
-                                     bin_capacity=2048, return_tiled=True)
-        nm = math3d.normal_matrix(state.world)
-        world_nrm = rz.transform_normals(rs.v_nrm, rs.v_entity, nm)
-        inv_w = 1.0 / jnp.where(jnp.abs(clip[:, 3]) > 1e-9, clip[:, 3], 1e-9)
-        light = LightParams.default()
-        args = (tiled, w, h, None, world_nrm, rs.v_uv, inv_w,
-                rs.tri_material, rs.mat_base_tint, rs.mat_uv_scale,
-                rs.mat_spec_params, rs.mat_spec_color, rs.mat_tex,
-                rs.textures, rs.tex_size, jnp.asarray(cam.position), light,
-                view, proj)
-        kw = dict(shade_slots=64,
-                  textures_quad=getattr(rs, "textures_quad", None),
-                  textures_quad_t=getattr(rs, "textures_quad_t", None))
-        a = np.asarray(shade_visibility_tiled(
-            *args, resolve_backend="pallas_interpret", **kw))
-        b = np.asarray(shade_visibility_tiled(
-            *args, resolve_backend="xla", **kw))
-        np.testing.assert_array_equal(a, b)
-        # narrow light width + wider heavy width exercises the heavy-tile
-        # second resolve and its one-hot merge in BOTH backends
-        kw["shade_slots"] = 24
-        kw["heavy_shade_slots"] = 64
-        a = np.asarray(shade_visibility_tiled(
-            *args, resolve_backend="pallas_interpret", **kw))
-        b = np.asarray(shade_visibility_tiled(
-            *args, resolve_backend="xla", **kw))
-        np.testing.assert_array_equal(a, b)
 
     def test_wireframe_true_line_primitives(self, demo):
         """F1 wireframe draws actual line primitives (white mesh edges on

@@ -15,9 +15,8 @@ import pytest
 
 from banggameengine_tpu.engine import make_step_fn
 from banggameengine_tpu.physics import contact_t
-from banggameengine_tpu.physics.broadphase_pallas import (
-    neighbor_lists_pallas,
-)
+from banggameengine_tpu.physics import shapes as sh
+from banggameengine_tpu.physics.broadphase import neighbor_lists_aabb
 from banggameengine_tpu.scene.synthetic import build_falling_boxes
 from banggameengine_tpu.state import InputFrame
 
@@ -44,7 +43,7 @@ def settled_pile():
             jnp.asarray([0.0, 0.0, 0.0, 1.0])),
     )
     saturated = state  # pre-settle snapshot (fully packed)
-    step = make_step_fn(static, donate=False, broadphase="pallas")
+    step = make_step_fn(static, donate=False, broadphase="sorted")
     inp = InputFrame.zero()
     for _ in range(800):
         state, _ = step(state, inp)
@@ -53,10 +52,12 @@ def settled_pile():
 
 def test_pile_saturates_neighbor_and_contact_caps(settled_pile):
     state, _settled, static = settled_pile
-    nl = neighbor_lists_pallas(
-        state.pos, state.quat, static.shape_type, static.shape_size,
-        state.alive, jnp.ones_like(state.alive),
-        static.layer, static.mask, max_neighbors=8, interpret=True,
+    mn, mx = sh.shape_aabb(state.pos, state.quat, static.shape_type,
+                           static.shape_size)
+    nl = neighbor_lists_aabb(
+        mn, mx, state.alive.astype(jnp.int32) * 2 - 1,
+        static.layer.astype(jnp.int32), static.mask.astype(jnp.int32),
+        max_neighbors=8,
     )
     valid_counts = np.asarray(nl.valid).sum(axis=1)
     # the cap is actually reached — this scenario exercises the edge
@@ -81,8 +82,6 @@ def test_pile_bounded_penetration_and_no_tunneling(settled_pile):
     assert np.isfinite(pos).all() and np.isfinite(vel).all()
     # no body tunneled through the ground plane: lowest CORNER above
     # -(slop + lateral margin + baumgarte equilibrium error)
-    from banggameengine_tpu.physics import shapes as sh
-
     corners = np.asarray(sh.box_corners(
         state.pos, state.quat, static.shape_size))[:96]
     assert corners[..., 1].min() > -0.08, corners[..., 1].min()
